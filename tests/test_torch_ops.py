@@ -1,0 +1,125 @@
+"""PyTorch port: the two kernels' plain versions against the JAX functions
+and the interpret-mode Pallas kernels, the weight bridge, device dispatch,
+and the port's independence from JAX.
+
+The CUDA kernels themselves run only on a card; chip_smoke.py holds them
+against these plain versions there.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from uegan_tpu.convert.torch_import import import_generator
+from uegan_tpu.ops.norms import feature_mean_std as jax_feature_mean_std
+from uegan_tpu.ops.pallas.gam_stats import gam_mean_std_pallas
+from uegan_tpu.ops.pallas.resize2x import upsample2x_ac_pallas
+from uegan_tpu.ops.resize import upsample2x_align_corners as jax_upsample2x
+from uegan_tpu_torch.convert.from_flax import generator_state_dict
+from uegan_tpu_torch.models.generator import Generator
+from uegan_tpu_torch.models.initializers import fan_in_normal_state
+from uegan_tpu_torch.ops.gam_stats import gam_mean_std
+from uegan_tpu_torch.ops.resize2x import upsample2x
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch thread while this file runs (the suite runs several workers
+    on a few cores), restored after it so other files keep their setting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 8, 32), (2, 12, 10, 3), (1, 1, 1, 5)])
+def test_gam_mean_std_matches_jax(shape):
+    x = np.random.default_rng(3).normal(0.5, 1.5, shape).astype(np.float32)
+    mean, std = gam_mean_std(torch.from_numpy(x))
+    assert mean.shape == std.shape == (shape[0], 1, 1, shape[3])
+    for ref in (jax_feature_mean_std(jnp.asarray(x)),
+                gam_mean_std_pallas(jnp.asarray(x), interpret=True)):
+        np.testing.assert_allclose(mean.numpy(), np.asarray(ref[0]), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(std.numpy(), np.asarray(ref[1]), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 4), (1, 16, 8, 4), (2, 12, 10, 3), (1, 1, 5, 2)])
+def test_upsample2x_matches_jax(shape):
+    x = np.random.default_rng(11).uniform(-1, 1, shape).astype(np.float32)
+    got = upsample2x(torch.from_numpy(x)).numpy()
+    n, h, w, c = shape
+    assert got.shape == (n, 2 * h, 2 * w, c)
+    for ref in (jax_upsample2x(jnp.asarray(x)), upsample2x_ac_pallas(jnp.asarray(x), interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
+def test_cpu_dispatch_and_refusals():
+    """A CPU tensor takes the plain path (no launch is counted); inputs the
+    kernels do not take raise; asking for CUDA without a card raises."""
+    from uegan_tpu_torch.cli import resolve_device
+
+    before = (gam_mean_std.launches, upsample2x.launches)
+    x = torch.randn(2, 4, 4, 8)
+    gam_mean_std(x)
+    upsample2x(x)
+    assert (gam_mean_std.launches, upsample2x.launches) == before
+    with pytest.raises(TypeError):
+        gam_mean_std(x.double())
+    with pytest.raises(ValueError):
+        upsample2x(x.permute(0, 3, 1, 2))  # not contiguous NHWC
+    with pytest.raises(ValueError):
+        upsample2x(x[0])  # rank 3
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("flags", [
+    {"mode": "train"}, {"is_test_nima": True}, {"tile_size": 512}, {"mesh_spatial": 2},
+    {"test_keep_aspect": True}, {"quantized_inference": "int8"},
+    {"quantized_inference": "int8_pallas"}, {"g_use_sn": True},
+])
+def test_options_outside_the_slice_raise(flags):
+    from uegan_tpu.config import Config
+    from uegan_tpu_torch.cli import check_supported
+
+    check_supported(Config(mode="test", is_test_nima=False))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        check_supported(Config(**{"mode": "test", "is_test_nima": False, **flags}))
+
+
+@pytest.mark.parametrize("norm_fun", ["none", "BatchNorm"])
+def test_bridge_round_trip_is_bit_exact(norm_fun):
+    """numpy state dict -> flax tree (import_generator) -> torch state dict
+    (from_flax) gives back the same bits, under names the port's Generator
+    loads strictly."""
+    g = Generator(conv_dim=8, norm_fun=norm_fun)
+    sd = fan_in_normal_state(g, seed=5)
+    back = generator_state_dict(import_generator(sd))
+    assert sorted(back) == sorted(sd)
+    for k, v in sd.items():
+        assert back[k].dtype == torch.float32
+        np.testing.assert_array_equal(back[k].numpy(), v, err_msg=k)
+    g.load_state_dict(back, strict=True)
+
+
+def test_port_imports_no_jax():
+    code = ("import sys; import uegan_tpu_torch.cli, uegan_tpu_torch.train.tester, "
+            "uegan_tpu_torch.models.generator; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')); "
+            "assert not bad, bad")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

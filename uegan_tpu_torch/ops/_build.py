@@ -1,0 +1,123 @@
+"""Build the hand-written CUDA kernels and load them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, at first use, in the git-ignored
+``csrc/build/`` directory beside the sources.  The library's name carries a
+hash of the sources and flags, so an edited source builds anew and an
+unchanged one is loaded as it is.  Nothing is built or loaded at import time:
+this module is imported on machines with no CUDA toolkit, where only the
+plain PyTorch versions of the kernels run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    # x, part, mean, std, dtype, n, hw, c, splits, chunk, eps, stream
+    "uegan_gam_stats": [_P, _P, _P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, _I64,
+                        ctypes.c_float, _P],
+    # x, out, dtype, n, h, w, c, vec, stream
+    "uegan_upsample2x": [_P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, ctypes.c_int, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libuegan_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if no library for the current sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees the whole file or none
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built on first use; raises if it cannot be built."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.uegan_error_string.argtypes = [ctypes.c_int]
+        lib.uegan_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if err != 0:
+        msg = lib.uegan_error_string(err).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def check_nhwc(x, what: str) -> None:
+    """Raise on any input the kernels do not take: they read a contiguous
+    rank-4 NHWC float32 or bfloat16 tensor."""
+    if x.dim() != 4:
+        raise ValueError(f"{what}: expected a rank-4 NHWC tensor, got shape {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: dtype {x.dtype} is not float32 or bfloat16")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: input must be contiguous NHWC (strides {x.stride()})")
+    if x.numel() == 0:
+        raise ValueError(f"{what}: empty input of shape {tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: device {x.device} is neither cpu nor cuda")
+
+
+def dtype_code(x) -> int:
+    """The C entry points' dtype argument: 0 = float32, 1 = bfloat16."""
+    return 0 if x.dtype == torch.float32 else 1
