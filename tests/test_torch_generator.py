@@ -91,10 +91,10 @@ def test_generator_parameter_count():
 
 
 def test_cli_test_mode_matches_jax(weights, jax_forward, tmp_path, monkeypatch):
-    """``python -m uegan_tpu_torch --mode test`` on the vendored fixture: its
-    PNGs are within one gray level of the JAX forward + device quantize on
-    the same batch, and its PSNR/SSIM CSVs agree with the JAX metrics run
-    over the same PNGs."""
+    """``python -m uegan_tpu_torch --mode test --packed_inference false`` (the
+    canonical forward) on the vendored fixture: its PNGs are within one gray
+    level of the JAX forward + device quantize on the same batch, and its
+    PSNR/SSIM CSVs agree with the JAX metrics run over the same PNGs."""
     from uegan_tpu.metrics.psnr import calc_psnr as jax_calc_psnr
     from uegan_tpu.metrics.ssim import calc_ssim as jax_calc_ssim
     from uegan_tpu_torch import cli
@@ -114,7 +114,7 @@ def test_cli_test_mode_matches_jax(weights, jax_forward, tmp_path, monkeypatch):
         # batch 3 > 2 images: the tail batch is padded and cropped back
         "--test_img_size", "32", "--val_batch_size", "3", "--pretrained_model", "92",
         "--compute_dtype", "float32", "--is_test_nima", "false",
-        "--is_test_psnr_ssim", "true", "--num_workers", "1",
+        "--is_test_psnr_ssim", "true", "--num_workers", "1", "--packed_inference", "false",
     ])
     assert res["n_images"] == 2
 

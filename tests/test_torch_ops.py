@@ -87,15 +87,36 @@ def test_cpu_dispatch_and_refusals():
 @pytest.mark.parametrize("flags", [
     {"mode": "train"}, {"is_test_nima": True}, {"tile_size": 512}, {"mesh_spatial": 2},
     {"test_keep_aspect": True}, {"quantized_inference": "int8"},
-    {"quantized_inference": "int8_pallas"}, {"g_use_sn": True},
+    {"quantized_inference": "int8_pallas"}, {"g_use_sn": True}, {"strip_rows": 8},
 ])
 def test_options_outside_the_slice_raise(flags):
-    from uegan_tpu.config import Config
     from uegan_tpu_torch.cli import check_supported
+    from uegan_tpu_torch.config import Config
 
     check_supported(Config(mode="test", is_test_nima=False))
+    check_supported(Config(mode="test", is_test_nima=False, packed_inference=False, strip_rows=8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_supported(Config(**{"mode": "test", "is_test_nima": False, **flags}))
+
+
+@pytest.mark.parametrize("argv", [[], ["--mode", "test", "--packed_inference", "false",
+                                       "--gpu_ids", "0", "--strip_rows", "-1"]])
+def test_config_equals_jax_field_by_field(argv):
+    """The port's copy of the config parses a command line to the same
+    fields and values as the JAX package's."""
+    import dataclasses
+
+    from uegan_tpu.config import get_config as jax_get_config
+    from uegan_tpu_torch.config import get_config
+
+    got, want = get_config(argv), jax_get_config(argv)
+    names = [f.name for f in dataclasses.fields(got)]
+    assert names == [f.name for f in dataclasses.fields(want)]
+    for name in names:
+        assert getattr(got, name) == getattr(want, name), name
+        assert type(getattr(got, name)) is type(getattr(want, name)), name
+    with pytest.raises(ValueError):
+        get_config(["--quantized_inference", "int4"])
 
 
 @pytest.mark.parametrize("norm_fun", ["none", "BatchNorm"])
@@ -114,9 +135,13 @@ def test_bridge_round_trip_is_bit_exact(norm_fun):
 
 
 def test_port_imports_no_jax():
+    """A fresh interpreter that imports the port's entry points loads no jax
+    module and no module of the JAX package."""
     code = ("import sys; import uegan_tpu_torch.cli, uegan_tpu_torch.train.tester, "
-            "uegan_tpu_torch.models.generator; "
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')); "
+            "uegan_tpu_torch.models.generator, uegan_tpu_torch.infer.packed, "
+            "uegan_tpu_torch.ops.s2d_fuse, uegan_tpu_torch.data.pipeline; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'uegan_tpu') or m.startswith('jax_')); "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

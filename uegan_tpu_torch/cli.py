@@ -1,10 +1,11 @@
 """CLI entry point: ``python -m uegan_tpu_torch --mode test ...``.
 
-Takes the JAX package's flags (uegan_tpu.config), so a command line runs
-unchanged on either package.  The device comes from ``UEGAN_TORCH_DEVICE``
-(default ``cuda``); when CUDA is asked for and there is none, the run stops
-rather than moving to the CPU.  Options this slice of the port does not
-cover raise ``NotImplementedError`` naming the ROADMAP item that will.
+Takes the JAX package's flags (the port's copy in config.py), so a command
+line runs unchanged on either package.  The device comes from
+``UEGAN_TORCH_DEVICE`` (default ``cuda``); when CUDA is asked for and there
+is none, the run stops rather than moving to the CPU.  Options this slice of
+the port does not cover raise ``NotImplementedError`` naming the ROADMAP
+item that will.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-from uegan_tpu.config import Config, get_config
+from uegan_tpu_torch.config import Config, get_config
+from uegan_tpu_torch.infer.packed import ROADMAP_INT8, ROADMAP_STRIPS
 from uegan_tpu_torch.models.blocks import ROADMAP_SN
 
 
@@ -40,8 +42,10 @@ def check_supported(args: Config) -> None:
                                 "items 8-9"),
         (args.test_keep_aspect, "--test_keep_aspect true: native-resolution inference is "
                                 "ROADMAP queue 1 item 8"),
-        (args.quantized_inference != "", f"--quantized_inference {args.quantized_inference}: "
-                                         "int8 inference is ROADMAP queue 1 item 10"),
+        (args.quantized_inference != "",
+         f"--quantized_inference {args.quantized_inference}: {ROADMAP_INT8}"),
+        (args.packed_inference and args.strip_rows > 0,
+         f"--strip_rows {args.strip_rows}: {ROADMAP_STRIPS}"),
         (args.g_use_sn, ROADMAP_SN),
         (args.param_dtype != "float32", f"--param_dtype {args.param_dtype}: the port keeps "
                                         "float32 parameters"),
@@ -56,26 +60,18 @@ def check_supported(args: Config) -> None:
 def main(args: Config) -> Dict:
     check_supported(args)
     device = resolve_device()
-    from uegan_tpu.data.pipeline import get_test_loader
+    from uegan_tpu_torch.data.pipeline import get_test_loader
     from uegan_tpu_torch.train.tester import Tester
 
     for sub in (args.model_save_path, args.sample_path, args.log_path,
                 args.val_result_path, args.test_result_path):
         os.makedirs(os.path.join(args.save_root_dir, args.version, sub), exist_ok=True)
-    if args.packed_inference:
-        print("=== --packed_inference is a TPU layout choice; the port runs the canonical "
-              "generator forward ===")
     loaders = {
         "tes": get_test_loader(
             args.test_img_dir,
             img_size=args.test_img_size,
             batch_size=args.val_batch_size,
-            shuffle=False,
             num_workers=args.num_workers,
-            seed=args.seed,
-            # one process: without these the loader asks jax for its rank
-            process_id=0,
-            process_count=1,
             emit="uint8" if args.device_image_io else "float32",
         )
     }

@@ -25,11 +25,17 @@ from uegan_tpu_torch.models.blocks import GAM, ConvBlock, SNConv, to_nchw, to_nh
 from uegan_tpu_torch.ops.resize2x import upsample2x
 
 
+def check_input_hw(h: int, w: int) -> None:
+    if h % 16 or w % 16 or h < 32 or w < 32:
+        raise ValueError(f"generator input H, W must be multiples of 16 and >= 32, got {h}x{w}")
+
+
 class Generator(nn.Module):
     def __init__(self, conv_dim: int = 32, norm_fun: str = "none", act_fun: str = "LeakyReLU",
                  use_sn: bool = False, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         cd = conv_dim
+        self.conv_dim, self.norm_fun, self.act_fun, self.use_sn = cd, norm_fun, act_fun, use_sn
         self.dtype = dtype
         kw = dict(dtype=dtype, device=device)
         block = dict(norm_fun=norm_fun, act_fun=act_fun, use_sn=use_sn, **kw)
@@ -58,8 +64,7 @@ class Generator(nn.Module):
         """x (N, H, W, 3) in [-1, 1] -> tanh residual (N, H, W, 3) in ``dtype``,
         before the add and clip."""
         n, h, w, c = x.shape
-        if h % 16 or w % 16 or h < 32 or w < 32:
-            raise ValueError(f"generator input H, W must be multiples of 16 and >= 32, got {h}x{w}")
+        check_input_hw(h, w)
         xc = to_nchw(x.contiguous())
         x1 = self.enc1(xc)
         x2 = self.enc2(x1)

@@ -37,6 +37,10 @@ _SIGNATURES = {
                         ctypes.c_float, _P],
     # x, out, dtype, n, h, w, c, vec, stream
     "uegan_upsample2x": [_P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, ctypes.c_int, _P],
+    # x, out, in dtype, out dtype, n, h, w, c, stream
+    "uegan_s2d_convert": [_P, _P, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64, _I64, _P],
+    # res, xp, out, dtype, n, hp, wp, c, stream
+    "uegan_residual_tail_d2s": [_P, _P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -5,7 +5,10 @@ outputs and side-by-side compare PNGs, then runs PSNR/SSIM over the saved
 files.  The batch is normalized, enhanced and quantized to uint8 on the
 device, so only 1-byte pixels cross to and from it.  Every batch runs at
 ``val_batch_size``: the tail batch is padded with zeros and cropped back,
-as in the JAX package.
+as in the JAX package.  The forward is ``infer/packed.py:make_fast_eval``
+(packed under the default ``--packed_inference true``), built at the first
+batch, after the checkpoint load, so that the packed kernels are made from
+the loaded weights and not from the random init.
 """
 
 from __future__ import annotations
@@ -17,12 +20,12 @@ from typing import Dict
 import numpy as np
 import torch
 
-from uegan_tpu.config import Config
+from uegan_tpu_torch.config import Config
+from uegan_tpu_torch.infer.packed import make_fast_eval
 from uegan_tpu_torch.metrics.psnr import calc_psnr
 from uegan_tpu_torch.metrics.ssim import calc_ssim
 from uegan_tpu_torch.models.generator import Generator
 from uegan_tpu_torch.models.initializers import init_weights
-from uegan_tpu_torch.train.step import make_eval_step
 from uegan_tpu_torch.utils.checkpoint import find_checkpoint, generator_state, load_pth
 from uegan_tpu_torch.utils.image_io import (normalize_u8, quantize_u8, save_image,
                                             save_image_grid, to_uint8)
@@ -66,20 +69,26 @@ class Tester:
         if args.is_print_network:
             n = sum(p.numel() for p in self.G.parameters())
             print(f"=== The number of parameters of [Generator] is [{n}] or [{n / 1e6:>.4f}M] ===")
-        self._eval_fn = make_eval_step(self.G)
+        self._fast_fn = None  # built from the loaded weights at the first batch
         print("=== Models have been created ===")
 
     def load_pretrained_model(self, resume_epochs) -> None:
         path = find_checkpoint(self.model_save_path, self.args, resume_epochs)
         self.G.load_state_dict(generator_state(load_pth(path)))
+        self._fast_fn = None  # re-pack from the loaded weights
         print(f"=========== loaded trained models (epochs: {resume_epochs})! ===========")
+
+    def _fast_eval(self):
+        if self._fast_fn is None:
+            self._fast_fn = make_fast_eval(self.G, self.args)
+        return self._fast_fn
 
     def _run(self, raw_batch: np.ndarray, u8_out: bool) -> np.ndarray:
         b = raw_batch.shape[0]
         raw = _pad_batch(np.asarray(raw_batch), max(b, self.args.val_batch_size))
         x = normalize_u8(torch.from_numpy(np.ascontiguousarray(raw)).to(self.device))
         with torch.inference_mode():
-            y = self._eval_fn(x)
+            y = self._fast_eval()(x)
             y = quantize_u8(y) if u8_out else y.float()
         return y.cpu().numpy()[:b]
 

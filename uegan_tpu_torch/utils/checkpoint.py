@@ -14,7 +14,7 @@ from typing import Dict
 
 import torch
 
-from uegan_tpu.config import Config
+from uegan_tpu_torch.config import Config
 
 ROADMAP_ORBAX = ("orbax checkpoint directories are not read by the port; export the "
                  "weights to the reference .pth first (ROADMAP queue 1 item 4)")
