@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from uegan_tpu_torch/csrc/ and runs
-six phases, each of which ends the run with a non-zero exit on failure:
+seven phases, each of which ends the run with a non-zero exit on failure:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
 2. build: nvcc for sm_90a, with the seconds it took;
@@ -33,8 +33,11 @@ six phases, each of which ends the run with a non-zero exit on failure:
    float32 canonical forward with the plain versions;
 6. timing: images/s of the canonical and the packed forward at 512 px,
    batch 8, bfloat16, with kernels and with plain versions, and each
-   kernel's time beside its plain version's and, for A and B, the PyTorch
-   library call that computes the same function, from CUDA events.
+   kernel's time beside its plain version's and, for A, B and C, the one
+   PyTorch library call that computes the same function, from CUDA events;
+7. profile: both forwards at 512 px, batch 8, bfloat16, under
+   torch.profiler: wall and device-busy time per forward, the device's idle
+   share, and device time in buckets of kernel names.
 
 It then prints the kernels' JSON line and, last, the device JSON line.  It
 exits non-zero without a result where CUDA is unavailable or where the
@@ -63,6 +66,21 @@ RAGGED = [(2, 12, 10, 3), (1, 1, 1, 5)]
 # and ragged ones; D takes the packed shapes (N, H/2, W/2, 4C)
 S2D_SHAPES = [(4, IMG, IMG, 3), (2, 12, 10, 3), (1, 2, 2, 5), (1, 4, 6, 1)]
 KERNELS = ("gam_stats", "upsample2x", "s2d_convert", "residual_tail_d2s")
+# phase 7: (bucket, substrings of the kernel name), first match wins
+BUCKETS = [
+    ("gam_stats kernel (A)", ("partial_sums", "finish<")),
+    ("upsample2x kernel (B)", ("upsample2x_ac",)),
+    ("s2d_convert kernel (C)", ("s2d_convert_kernel",)),
+    ("residual_tail_d2s kernel (D)", ("residual_tail_d2s_kernel",)),
+    ("reflect pad", ("reflection_pad",)),
+    ("concat", ("CatArrayBatchedCopy", "cat_")),
+    ("row gathers (index_select)", ("indexSelect", "index_select")),
+    ("convolutions (cuDNN)", ("fprop", "conv", "implicit", "cudnn", "winograd")),
+    ("matmuls (einsum)", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+    ("reductions", ("reduce_kernel", "Reduce")),
+    ("copies and casts", ("copy", "Memcpy", "Memset", "nchwToNhwc", "nhwcToNchw")),
+    ("other elementwise", ("elementwise", "vectorized", "Elementwise")),
+]
 
 
 def log(phase: str, msg: str) -> None:
@@ -488,6 +506,16 @@ def phase_timing(dev, card: str) -> dict:
         rs = [torch.rand(pshape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(ring)]
         ps = [torch.rand(pshape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(ring)]
 
+        def library_s2d(x):
+            """C's function in one PyTorch call: the permuted view cast into
+            contiguous bfloat16 memory (one copy kernel), viewed packed."""
+            n, h, w, c = x.shape
+            return x.view(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5).to(
+                torch.bfloat16, memory_format=torch.contiguous_format).view(n, h // 2, w // 2, 4 * c)
+
+        if not bits_equal(library_s2d(xs[0]), s2d_fuse.plain_s2d_convert(xs[0])):
+            raise AssertionError("C's library call differs from its plain version")
+
         def cycling(fn):
             state = {"i": 0}
 
@@ -497,11 +525,12 @@ def phase_timing(dev, card: str) -> dict:
             return call
 
         t = turns(cycling(lambda i: s2d_fuse.s2d_convert(xs[i])),
-                  cycling(lambda i: s2d_fuse.plain_s2d_convert(xs[i])), None, 40)
+                  cycling(lambda i: s2d_fuse.plain_s2d_convert(xs[i])),
+                  cycling(lambda i: library_s2d(xs[i])), 40)
         add("s2d_convert", t, xs[0].numel() * 4 + xs[0].numel() * 2)
         log("6 timing", f"s2d_convert ({b},{IMG},{IMG},3) f32 -> bf16: kernel "
-                        f"{t['kernel'] * 1e3:.1f} us, plain {t['plain'] * 1e3:.1f} us per call "
-                        f"[{card}]")
+                        f"{t['kernel'] * 1e3:.1f} us, plain {t['plain'] * 1e3:.1f} us, one "
+                        f"permuted .to() {t['library'] * 1e3:.1f} us per call [{card}]")
         t = turns(cycling(lambda i: s2d_fuse.residual_tail_d2s(rs[i], ps[i])),
                   cycling(lambda i: s2d_fuse.plain_residual_tail_d2s(rs[i], ps[i])), None, 40)
         add("residual_tail_d2s", t, rs[0].numel() * 2 * 3)
@@ -516,6 +545,76 @@ def phase_timing(dev, card: str) -> dict:
                         f"({p['bytes'] / 1e6:.1f} MB at 3.35 TB/s), "
                         f"{p['bound'] / p['kernel']:.0%} of the bound [{card}]")
     return {"forward": fwd, "per_kernel": per}
+
+
+def bucket_of(name: str) -> str:
+    for bucket, keys in BUCKETS:
+        if any(k in name for k in keys):
+            return bucket
+    return "other"
+
+
+def profile(step, iters: int = 10, warmup: int = 5) -> dict:
+    """torch.profiler over ``iters`` calls of step() after ``warmup``: host
+    wall ms per call, device-busy ms per call (the union of kernel
+    intervals), the idle share of the kernels' span, and per bucket of
+    kernel names (ms per call, kernels per call)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters * 1e3
+    events = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not events:
+        raise AssertionError("torch.profiler recorded no device kernel")
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
+    buckets = {}
+    for e in events:
+        b = buckets.setdefault(bucket_of(e.name), [0.0, 0])
+        b[0] += e.time_range.elapsed_us() / 1e3 / iters
+        b[1] += 1 / iters
+    return {"wall_ms": wall, "busy_ms": busy / 1e3 / iters, "idle_share": 1.0 - busy / span,
+            "buckets": buckets, "longest": sorted(((e.time_range.elapsed_us(), e.name)
+                                                   for e in events), reverse=True)}
+
+
+def phase_profile(dev, card: str) -> None:
+    """Where the device time of each forward goes (512 px, B=8, bf16)."""
+    import torch
+
+    g, _ = seeded_generator(torch.bfloat16, dev)
+    x = torch.rand((8, IMG, IMG, 3), device=dev) * 2 - 1
+    with torch.inference_mode():
+        for name, fn in (("canonical", g), ("packed", packed_forward(g))):
+            r = profile(lambda: fn(x))
+            log("7 profile", f"{name} forward {IMG}px B=8 bf16 under torch.profiler: wall "
+                             f"{r['wall_ms']:.3f} ms per forward, device busy {r['busy_ms']:.3f} "
+                             f"ms, idle share {r['idle_share']:.3f} [{card}]")
+            log("7 profile", "| bucket | ms per forward | kernels per forward | share of busy |")
+            for k, (ms, n) in sorted(r["buckets"].items(), key=lambda kv: -kv[1][0]):
+                log("7 profile", f"| {k} | {ms:.3f} | {n:g} | {ms / r['busy_ms']:.1%} |")
+            seen = set()
+            for us, kname in r["longest"]:
+                if kname not in seen and len(seen) < 8:
+                    seen.add(kname)
+                    log("7 profile", f"longest: {us:9.1f} us [{bucket_of(kname)}] {kname[:120]}")
 
 
 def main() -> int:
@@ -553,6 +652,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="uegan_smoke_") as tmp:
         launches = phase_end_to_end(dev, tmp)
     timing = phase_timing(dev, card)
+    phase_profile(dev, card)
 
     src = {"gam_stats": ("uegan_tpu_torch/csrc/gam_stats.cu",
                          "uegan_tpu/ops/pallas/gam_stats.py:66"),

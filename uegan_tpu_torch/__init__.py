@@ -14,5 +14,4 @@ test loader).  It imports ``torch`` and never ``jax`` or ``uegan_tpu``.
 - :mod:`uegan_tpu_torch.metrics`  PSNR/SSIM in the reference's disk/CSV protocol
 - :mod:`uegan_tpu_torch.convert`  flax generator variables -> torch state dict
 - :mod:`uegan_tpu_torch.utils`    image IO, seeds, reference checkpoints
-- :mod:`uegan_tpu_torch.tools`    the on-card profile of a forward
 """

@@ -16,7 +16,7 @@ from typing import Dict, List, Optional
 import torch
 
 from uegan_tpu_torch.config import Config, get_config
-from uegan_tpu_torch.infer.packed import ROADMAP_INT8, ROADMAP_STRIPS
+from uegan_tpu_torch.infer.packed import check_packed_options
 from uegan_tpu_torch.models.blocks import ROADMAP_SN
 
 
@@ -42,10 +42,6 @@ def check_supported(args: Config) -> None:
                                 "items 8-9"),
         (args.test_keep_aspect, "--test_keep_aspect true: native-resolution inference is "
                                 "ROADMAP queue 1 item 8"),
-        (args.quantized_inference != "",
-         f"--quantized_inference {args.quantized_inference}: {ROADMAP_INT8}"),
-        (args.packed_inference and args.strip_rows > 0,
-         f"--strip_rows {args.strip_rows}: {ROADMAP_STRIPS}"),
         (args.g_use_sn, ROADMAP_SN),
         (args.param_dtype != "float32", f"--param_dtype {args.param_dtype}: the port keeps "
                                         "float32 parameters"),
@@ -53,6 +49,8 @@ def check_supported(args: Config) -> None:
     for hit, why in unsupported:
         if hit:
             raise NotImplementedError(why)
+    if args.packed_inference:
+        check_packed_options(args)
     if args.mode != "test":
         raise ValueError(f"unknown mode [{args.mode}]")
 

@@ -67,6 +67,9 @@ class _Loader:
         stop = threading.Event()
 
         def producer():
+            # the last item is None at the end of the data, or the error that
+            # stopped it: an unreadable image fails the run, not shortens it
+            end = None
             try:
                 with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
                     for b in batches:
@@ -76,8 +79,10 @@ class _Loader:
                         q.put({"img_exp": np.stack([it["exp"] for it in items]),
                                "img_raw": np.stack([it["raw"] for it in items]),
                                "img_name": [it["name"] for it in items]})
+            except Exception as exc:  # noqa: BLE001 - handed to the consumer
+                end = exc
             finally:
-                q.put(None)
+                q.put(end)
 
         threading.Thread(target=producer, daemon=True).start()
         try:
@@ -85,6 +90,8 @@ class _Loader:
                 batch = q.get()
                 if batch is None:
                     return
+                if isinstance(batch, Exception):
+                    raise batch
                 yield batch
         finally:
             stop.set()

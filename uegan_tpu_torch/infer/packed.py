@@ -223,12 +223,12 @@ def pack_generator_params(state: Dict, conv_dim: int,
     """Pack the full-res kernels of a port Generator's state dict.
 
     Covers enc1, enc2 (stride-2 consumer), ga1's fuse (its x-part), dec4 and
-    the dec5 head (sequential kernels for the border, the composed 9x9 and
-    its stride-2 deep form for the interior).  Torch OIHW weights are turned
-    into HWIO, packed with the JAX package's numpy algebra (so the packed
-    values are the same bits), and handed back as OIHW float32 tensors on
-    ``device``; the lead offsets ``*_s0`` are ints, ``dec5c_b`` the composed
-    head's bias.
+    the dec5 head (sequential kernels for the border, and for the interior
+    the stride-2 deep form of the composed 9x9).  Torch OIHW weights are
+    turned into HWIO, packed with the JAX package's numpy algebra (so the
+    packed values are the same bits), and handed back as OIHW float32
+    tensors on ``device``; the lead offsets ``*_s0`` are ints, ``dec5c_b``
+    the composed head's bias.
     """
     cd = conv_dim
     hwio = lambda key: np.ascontiguousarray(np.transpose(_numpy(state[key]), (2, 3, 1, 0)))
@@ -249,9 +249,8 @@ def pack_generator_params(state: Dict, conv_dim: int,
     k9, b9 = compose_dec5_kernels(
         hwio("dec5.0.main.1.weight"), _numpy(state["dec5.0.main.1.bias"]),
         hwio("dec5.1.main.1.weight"), _numpy(state["dec5.1.main.1.bias"]))
-    packed["dec5c_k"], packed["dec5c_s0"] = pack_kernel_s1(k9, 4)
+    packed["dec5d_k"] = compose_dec5_deep_kernel(pack_kernel_s1(k9, 4)[0])
     packed["dec5c_b"] = b9
-    packed["dec5d_k"] = compose_dec5_deep_kernel(packed["dec5c_k"])
     out: Dict = {}
     for k, v in packed.items():
         if isinstance(v, np.ndarray):
@@ -430,33 +429,29 @@ _DEC5_FIX = 2
 _DEC5_SLAB = 6
 
 
-def packed_dec5_head(z: torch.Tensor, pk9: torch.Tensor, s0_9: int, b9: torch.Tensor,
+def packed_dec5_head(z: torch.Tensor, k6: torch.Tensor, b9: torch.Tensor,
                      pk0: torch.Tensor, s0_0: int, b0: torch.Tensor,
                      pk1: torch.Tensor, s0_1: int, b1: torch.Tensor, cd: int,
-                     dt: torch.dtype, k6: Optional[torch.Tensor] = None,
-                     act: Optional[Callable] = None) -> torch.Tensor:
+                     dt: torch.dtype, act: Optional[Callable] = None) -> torch.Tensor:
     """The dec5 head on the packed modulated tensor z = y4p * x1p: the
-    interior from the composed 9x9 conv, the border band from the sequential
+    interior from the composed 9x9 conv in its stride-2 deep form ``k6``
+    (zero-padded by 2, whose zero-pad reach is exactly the band the
+    sequential strips overwrite), the border band from the sequential
     two-conv chain on narrow slabs (full-height column slabs and full-width
     row slabs carry real reflect on their outer edges, so the strips, corners
-    included, equal the sequential values).
-
-    ``k6`` (when given and the packed dims are even): the stride-2 deep form
-    of the composed kernel, zero-padded by 2; its zero-pad reach is exactly
-    the band the sequential strips overwrite."""
+    included, equal the sequential values).  The packed dims must be even
+    and wider than a slab, which every input the generator takes gives
+    (H and W multiples of 16, at least 32)."""
     r, slab = _DEC5_FIX, _DEC5_SLAB
     lp, wp = z.shape[1], z.shape[2]
+    if lp % 2 or wp % 2 or min(lp, wp) <= slab + r:
+        raise ValueError(f"packed_dec5_head: packed dims {lp}x{wp} must be even and > {slab + r}")
 
     def seq(t: torch.Tensor) -> torch.Tensor:
         h = packed_conv(t, pk0, s0_0, cd, b0, dt)
         return packed_conv(h, pk1, s0_1, cd, b1, dt, act=act)
 
-    if lp <= slab + r or wp <= slab + r:  # tiny inputs: sequential everywhere
-        return seq(z)
-    if k6 is not None and lp % 2 == 0 and wp % 2 == 0:
-        y = depth_to_space(_conv(z, k6, b9, dt, act, stride=2, padding=2))  # (N, lp, wp, 12)
-    else:
-        y = packed_conv(z, pk9, s0_9, cd, b9, dt, act=act)
+    y = depth_to_space(_conv(z, k6, b9, dt, act, stride=2, padding=2))  # (N, lp, wp, 12)
     # full-height W strips first (exact incl. corners), then full-width H
     # strips (also exact incl. corners: the same values where they overlap)
     y[:, :, :r] = seq(z[:, :, :slab])[:, :, :r]
@@ -519,13 +514,24 @@ def make_packed_eval(g: Generator, packed: Dict) -> Callable[[torch.Tensor], tor
         y4p = packed_conv(torch.cat([u4, ga1p], dim=-1), pk["dec4_k"], s0["dec4_s0"],
                           [cd, cd], b_dec4, dt, act=leaky)
         res = packed_dec5_head(
-            y4p * x1p, pk["dec5c_k"], pk["dec5c_s0"], pk["dec5c_b"],
+            y4p * x1p, pk["dec5d_k"], pk["dec5c_b"],
             pk["dec5_0_k"], s0["dec5_0_s0"], b_dec5_0,
-            pk["dec5_1_k"], s0["dec5_1_s0"], b_dec5_1, cd, dt,
-            k6=pk["dec5d_k"], act=torch.tanh)
+            pk["dec5_1_k"], s0["dec5_1_s0"], b_dec5_1, cd, dt, act=torch.tanh)
         return residual_tail_d2s(res, xp)  # clip(res + x, -1, 1), unpacked
 
     return fn
+
+
+def check_packed_options(config) -> None:
+    """Raise for the options of the packed route that later slices port:
+    int8 inference and a forced strip height.  :func:`make_fast_eval` calls
+    it where it takes the packed route; the CLI calls it before it loads
+    anything."""
+    if config.quantized_inference:
+        raise NotImplementedError(f"--quantized_inference {config.quantized_inference}: "
+                                  f"{ROADMAP_INT8}")
+    if config.strip_rows > 0:
+        raise NotImplementedError(f"--strip_rows {config.strip_rows}: {ROADMAP_STRIPS}")
 
 
 def make_fast_eval(g: Generator, config) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -539,11 +545,7 @@ def make_fast_eval(g: Generator, config) -> Callable[[torch.Tensor], torch.Tenso
     """
     if not (config.packed_inference and is_default_generator(g)):
         return make_eval_step(g)
-    if config.quantized_inference:
-        raise NotImplementedError(f"--quantized_inference {config.quantized_inference}: "
-                                  f"{ROADMAP_INT8}")
-    if config.strip_rows > 0:
-        raise NotImplementedError(f"--strip_rows {config.strip_rows}: {ROADMAP_STRIPS}")
+    check_packed_options(config)
     g.eval()
     fn = make_packed_eval(g, pack_generator_params(g.state_dict(), g.conv_dim,
                                                    device=g.enc1.main[1].weight.device))

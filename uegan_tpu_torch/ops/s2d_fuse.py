@@ -23,7 +23,7 @@ import torch
 
 from uegan_tpu_torch.ops import _build
 
-_GRID_YZ_MAX = 65535  # CUDA's limit on gridDim.y (rows) and gridDim.z (batch)
+_INDEX_LIMIT = 2 ** 31  # the kernels index elements with 32-bit offsets
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -60,8 +60,8 @@ def s2d_convert(x: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16) -> tor
         raise ValueError(f"s2d_convert: H and W must be even, got {h}x{w}")
     if x.device.type == "cpu":
         return plain_s2d_convert(x, out_dtype)
-    if n > _GRID_YZ_MAX or h // 2 > _GRID_YZ_MAX:
-        raise ValueError(f"s2d_convert: shape {tuple(x.shape)} exceeds the kernel's grid")
+    if x.numel() >= _INDEX_LIMIT:
+        raise ValueError(f"s2d_convert: shape {tuple(x.shape)} has 2^31 elements or more")
     lib = _build.load()
     with torch.cuda.device(x.device):
         out = torch.empty((n, h // 2, w // 2, 4 * c), dtype=out_dtype, device=x.device)
@@ -88,8 +88,8 @@ def residual_tail_d2s(res: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"residual_tail_d2s: packed channels {c4} are not a multiple of 4")
     if res.device.type == "cpu":
         return plain_residual_tail_d2s(res, xp)
-    if n > _GRID_YZ_MAX or 2 * hp > _GRID_YZ_MAX:
-        raise ValueError(f"residual_tail_d2s: shape {tuple(res.shape)} exceeds the kernel's grid")
+    if res.numel() >= _INDEX_LIMIT:
+        raise ValueError(f"residual_tail_d2s: shape {tuple(res.shape)} has 2^31 elements or more")
     lib = _build.load()
     with torch.cuda.device(res.device):
         out = torch.empty((n, 2 * hp, 2 * wp, c4 // 4), dtype=res.dtype, device=res.device)
