@@ -5,8 +5,9 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from uegan_tpu_torch/csrc/ and runs
-seven phases, each of which ends the run with a non-zero exit on failure:
+It builds the hand-written CUDA kernels from uegan_tpu_torch/csrc/ (one nvcc
+a source, started together) and runs seven phases, each of which ends the
+run with a non-zero exit on failure:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
 2. build: nvcc for sm_90a, with the seconds it took;
@@ -17,27 +18,45 @@ seven phases, each of which ends the run with a non-zero exit on failure:
    |d| <= max(one bfloat16 ulp of the reference, 1e-5).  s2d_convert (C)
    and residual_tail_d2s (D) against their plain versions at the 512 px
    packed shapes (batch 4) and ragged ones, float32 and bfloat16, with NaN
-   and +-inf inputs to D: bit-equal (NaN compared as NaN);
+   and +-inf inputs to D: bit-equal (NaN compared as NaN).
+   packed_conv_int8 (E) against its plain version at the ga1 shape, the
+   dec4 site (3x3, leaky, multiply, requant) and the dec5_0 site (requant)
+   of the 512 px int8 forward (batch 4), a 5x5 12-channel tanh case and
+   ragged shapes: bit-equal in every column, tanh within one bfloat16 ulp or
+   one int8 step.  packed_conv (F) against its plain version run in float64,
+   in float32 and bfloat16, at the dec4 shape (batch 2), a 5x5 case and
+   ragged ones, with A's and B's tolerances;
 4. model: the default generator (conv_dim 32, seeded N(0, 1/fan_in) weights)
    at 512 px in float32 with TF32 off.  Canonical forward: kernels against
    plain versions, max |d| <= 1e-4, launches gam_stats 5, upsample2x 4.
    Packed forward: kernels against plain versions <= 1e-4, against the
    canonical forward <= 2e-3, launches s2d_convert 1, residual_tail_d2s 1,
-   upsample2x 3, gam_stats 0;
+   upsample2x 3, gam_stats 0.  Then the int8 and int8_pallas forwards in
+   bfloat16 (batch 2, calibrated on their input): >= 30 dB from the bf16
+   packed forward, int8_pallas vs int8 max |d| <= 0.02, kernels vs plain
+   >= 40 dB and max |d| <= 0.05; launches a forward gam_stats 4,
+   upsample2x 3, s2d_convert 1, residual_tail_d2s 1, and packed_conv_int8
+   1 under int8_pallas (ga1), 0 under int8;
 5. end to end: ``--mode test`` through uegan_tpu_torch.cli.run on a synthetic
    FiveK-layout test set of 8 images at 512 px with a reference-format .pth,
-   bfloat16, batch 4, twice: with ``--packed_inference false`` (launches
-   gam_stats 10, upsample2x 8) and with the default packed path
-   (s2d_convert 2, residual_tail_d2s 2, upsample2x 6, gam_stats 0).  Each
-   writes 8 result PNGs and the PSNR and SSIM CSVs, within 35 dB PSNR of a
-   float32 canonical forward with the plain versions;
+   bfloat16, batch 4, three times: with ``--packed_inference false``
+   (launches gam_stats 10, upsample2x 8), with the default packed path
+   (s2d_convert 2, residual_tail_d2s 2, upsample2x 6, gam_stats 0), and with
+   ``--quantized_inference int8_pallas`` (packed_conv_int8 2; with the
+   calibration forward on the first batch gam_stats 12, upsample2x 9,
+   s2d_convert 3, residual_tail_d2s 2).  Each writes 8 result PNGs and the
+   PSNR and SSIM CSVs, within 35 dB PSNR (30 dB for int8) of a float32
+   canonical forward with the plain versions;
 6. timing: images/s of the canonical and the packed forward at 512 px,
-   batch 8, bfloat16, with kernels and with plain versions, and each
-   kernel's time beside its plain version's and, for A, B and C, the one
-   PyTorch library call that computes the same function, from CUDA events;
-7. profile: both forwards at 512 px, batch 8, bfloat16, under
-   torch.profiler: wall and device-busy time per forward, the device's idle
-   share, and device time in buckets of kernel names.
+   batch 8, bfloat16, with kernels and with plain versions, and of the int8
+   and int8_pallas forwards beside the packed one; each kernel's time beside
+   its plain version's, its bound and, for A, B, C and F, the one PyTorch
+   library call that computes the same function (E at ga1 beside
+   torch._int_mm alone, and at the dec4 site beside the int8 mode's
+   unfused chain), from CUDA events;
+7. profile: the canonical, packed and int8_pallas forwards at 512 px, batch
+   8, bfloat16, under torch.profiler: wall and device-busy time per forward,
+   the device's idle share, and device time in buckets of kernel names.
 
 It then prints the kernels' JSON line and, last, the device JSON line.  It
 exits non-zero without a result where CUDA is unavailable or where the
@@ -65,9 +84,36 @@ RAGGED = [(2, 12, 10, 3), (1, 1, 1, 5)]
 # original (N, H, W, C) images for kernels C and D: the 512 px batch-4 input
 # and ragged ones; D takes the packed shapes (N, H/2, W/2, 4C)
 S2D_SHAPES = [(4, IMG, IMG, 3), (2, 12, 10, 3), (1, 2, 2, 5), (1, 4, 6, 1)]
-KERNELS = ("gam_stats", "upsample2x", "s2d_convert", "residual_tail_d2s")
+KERNELS = ("gam_stats", "upsample2x", "s2d_convert", "residual_tail_d2s", "packed_conv_int8",
+           "packed_conv")
+INT8_PEAK_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
+BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+CD = 32
+HP = IMG // 2  # packed height and width
+# kernel E's cases: (what, (N, L, W, Cin), Cout, S, s0, act, mul, requant); the
+# main path's ga1 (1x1), the dec4 and dec5_0 sites the fused path has, an
+# enc1-like 5x5 with 12 channels and tanh, and ragged shapes
+E_CASES = [
+    ("ga1", (4, HP, HP, 4 * CD), 4 * CD, 1, 0, "none", False, False),
+    ("dec4 site", (4, HP, HP, 8 * CD), 4 * CD, 3, 1, "leaky", True, True),
+    ("dec5_0 site", (4, HP, HP, 4 * CD), 4 * CD, 3, 1, "none", False, True),
+    ("S=5 cin=12", (4, HP, HP, 12), 4 * CD, 5, 2, "tanh", False, False),
+    ("ragged", (2, 7, 9, 5), 6, 3, 1, "leaky", True, False),
+    ("ragged requant", (2, 7, 9, 5), 6, 3, 1, "leaky", True, True),
+    ("ragged S=4", (1, 7, 9, 5), 3, 4, 2, "tanh", False, True),
+    ("ragged 1x1", (3, 7, 9, 5), 70, 1, 0, "none", False, False),
+]
+# kernel F's cases: (what, (N, L, W, Cin), Cout, S, s0, act)
+F_CASES = [
+    ("dec4 shape", (2, HP, HP, 8 * CD), 4 * CD, 3, 1, "leaky"),
+    ("S=5", (2, 64, 64, 4 * CD), 4 * CD, 5, 2, "tanh"),
+    ("ragged S=4", (2, 7, 9, 5), 6, 4, 2, "none"),
+    ("ragged 1x1", (1, 7, 9, 5), 70, 1, 0, "leaky"),
+]
 # phase 7: (bucket, substrings of the kernel name), first match wins
 BUCKETS = [
+    ("packed_conv_int8 kernel (E)", ("Int8Epilogue",)),
+    ("packed_conv kernel (F)", ("FloatEpilogue",)),
     ("gam_stats kernel (A)", ("partial_sums", "finish<")),
     ("upsample2x kernel (B)", ("upsample2x_ac",)),
     ("s2d_convert kernel (C)", ("s2d_convert_kernel",)),
@@ -76,7 +122,7 @@ BUCKETS = [
     ("concat", ("CatArrayBatchedCopy", "cat_")),
     ("row gathers (index_select)", ("indexSelect", "index_select")),
     ("convolutions (cuDNN)", ("fprop", "conv", "implicit", "cudnn", "winograd")),
-    ("matmuls (einsum)", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+    ("matmuls (einsum, int8 _int_mm)", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "imma")),
     ("reductions", ("reduce_kernel", "Reduce")),
     ("copies and casts", ("copy", "Memcpy", "Memset", "nchwToNhwc", "nhwcToNchw")),
     ("other elementwise", ("elementwise", "vectorized", "Elementwise")),
@@ -123,6 +169,8 @@ def bits_equal(got, want) -> bool:
 
     if got.shape != want.shape or got.dtype != want.dtype:
         return False
+    if not got.is_floating_point():
+        return bool(torch.equal(got, want))
     as_int = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
     nan_g, nan_w = torch.isnan(got), torch.isnan(want)
     same = got.view(as_int) == want.view(as_int)
@@ -148,21 +196,24 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 @contextlib.contextmanager
 def plain_versions():
     """Route both generator forwards through the kernels' plain PyTorch versions."""
-    from uegan_tpu_torch.infer import packed
+    from uegan_tpu_torch.infer import packed, quantized
     from uegan_tpu_torch.models import blocks, generator
-    from uegan_tpu_torch.ops import gam_stats, resize2x, s2d_fuse
+    from uegan_tpu_torch.ops import gam_stats, packed_conv_int8, resize2x, s2d_fuse
 
-    saved = (blocks.gam_mean_std, generator.upsample2x, packed.upsample2x, packed.s2d_convert,
-             packed.residual_tail_d2s)
-    blocks.gam_mean_std, generator.upsample2x, packed.upsample2x = (
-        gam_stats.plain, resize2x.plain, resize2x.plain)
-    packed.s2d_convert = s2d_fuse.plain_s2d_convert
-    packed.residual_tail_d2s = s2d_fuse.plain_residual_tail_d2s
+    swaps = [(blocks, "gam_mean_std", gam_stats.plain),
+             (generator, "upsample2x", resize2x.plain), (packed, "upsample2x", resize2x.plain)]
+    for mod in (packed, quantized):
+        swaps += [(mod, "s2d_convert", s2d_fuse.plain_s2d_convert),
+                  (mod, "residual_tail_d2s", s2d_fuse.plain_residual_tail_d2s)]
+    swaps.append((quantized, "packed_conv_int8", packed_conv_int8.plain_packed_conv_int8))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        (blocks.gam_mean_std, generator.upsample2x, packed.upsample2x, packed.s2d_convert,
-         packed.residual_tail_d2s) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def seeded_generator(dtype, device):
@@ -187,11 +238,14 @@ def packed_forward(g):
 
 def _wrappers() -> dict:
     from uegan_tpu_torch.ops.gam_stats import gam_mean_std
+    from uegan_tpu_torch.ops.packed_conv import packed_conv
+    from uegan_tpu_torch.ops.packed_conv_int8 import packed_conv_int8
     from uegan_tpu_torch.ops.resize2x import upsample2x
     from uegan_tpu_torch.ops.s2d_fuse import residual_tail_d2s, s2d_convert
 
     return {"gam_stats": gam_mean_std, "upsample2x": upsample2x, "s2d_convert": s2d_convert,
-            "residual_tail_d2s": residual_tail_d2s}
+            "residual_tail_d2s": residual_tail_d2s, "packed_conv_int8": packed_conv_int8,
+            "packed_conv": packed_conv}
 
 
 def counts() -> dict:
@@ -302,6 +356,80 @@ def phase_s2d_kernels(dev) -> dict:
     return worst
 
 
+def e_inputs(shape, cout, S, use_mul, gen, dev) -> tuple:
+    """Kernel E's operands: int8 x and OIHW k over the whole int8 range,
+    per-channel scales that put the dequantized sums near N(0, 1), a small
+    bias, and a bf16 factor of the output's shape when ``use_mul``."""
+    import torch
+
+    n, l, w, cin = shape
+    xq = torch.randint(-127, 128, shape, generator=gen, device=dev).to(torch.int8)
+    kq = torch.randint(-127, 128, (cout, cin, S, S), generator=gen, device=dev).to(torch.int8)
+    unit = 1.0 / (73.3 * 73.3 * math.sqrt(S * S * cin))  # 1 / std of the int32 sums
+    ws = (torch.rand(cout, generator=gen, device=dev) + 0.5) * unit
+    bias = torch.randn(cout, generator=gen, device=dev) * 0.1
+    mul = None
+    if use_mul:
+        mul = torch.randn((n, l, w, cout), generator=gen, device=dev).to(torch.bfloat16)
+    return xq, kq, ws, bias, mul
+
+
+def phase_int8_kernels(dev) -> dict:
+    """E against its plain version (conv2d_int8, an exact int32 sum, then
+    the same f32 epilogue): bit-equal in every column (both zero-pad), tanh
+    within one bf16 ulp or one int8 step.  F against its plain version run
+    in float64 and rounded, with A's and B's tolerances."""
+    import torch
+
+    from uegan_tpu_torch.ops import packed_conv as fmod
+    from uegan_tpu_torch.ops import packed_conv_int8 as emod
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    worst = {"packed_conv_int8": 0.0, "packed_conv": 0.0}
+    for what, shape, cout, S, s0, act, use_mul, requant in E_CASES:
+        xq, kq, ws, bias, mul = e_inputs(shape, cout, S, use_mul, gen, dev)
+        kw = dict(act=act, mul=mul, out_scale=0.02, requant=requant)
+        got = emod.packed_conv_int8(xq, kq, ws, bias, s0, **kw)
+        want = emod.plain_packed_conv_int8(xq, kq, ws, bias, s0, **kw)
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs()
+        err = float(d.max())
+        worst["packed_conv_int8"] = max(worst["packed_conv_int8"], err)
+        if act == "tanh":
+            lim = torch.ones_like(d) if requant else bf16_ulp(want)
+            ok = got.dtype == want.dtype and bool((d <= lim).all())
+            verdict = f"within one {'int8 step' if requant else 'bf16 ulp'}"
+        else:
+            ok = bits_equal(got, want)
+            verdict = "bit-equal"
+        log("3 kernels", f"packed_conv_int8 {what} {shape} -> {cout}, S={S} s0={s0} {act}"
+                         f"{' mul' if use_mul else ''}{' requant' if requant else ''}: "
+                         f"{verdict if ok else 'DIFFERS'} (max abs {err:.3e}, differing "
+                         f"{int((d > 0).sum())} of {d.numel()})")
+        if not ok:
+            raise AssertionError(f"packed_conv_int8 {what} differs from its plain version")
+    for what, shape, cout, S, s0, act in F_CASES:
+        x = torch.randn(shape, generator=gen, device=dev)
+        k = torch.randn((cout, shape[-1], S, S), generator=gen, device=dev) / math.sqrt(
+            S * S * shape[-1])
+        b = torch.randn(cout, generator=gen, device=dev) * 0.1
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, kd, bd = x.to(dtype), k.to(dtype), b.to(dtype)
+            got = fmod.packed_conv(xd, kd, bd, s0, act)
+            want = fmod.plain_packed_conv(xd.double(), kd.double(), bd.double(), s0, act).to(dtype)
+            torch.cuda.synchronize()
+            err, rel, ok = compare(got, want, dtype)
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            log("3 kernels", f"packed_conv {what} {shape} -> {cout}, S={S} s0={s0} {act} {tag}: "
+                             f"max abs {err:.3e} max rel {rel:.3e} "
+                             f"{'ok' if ok else 'OUT OF TOLERANCE'} (plain in f64)")
+            if not ok:
+                raise AssertionError(f"packed_conv {what} {tag} disagrees with its plain version")
+            if dtype == torch.float32:
+                worst["packed_conv"] = max(worst["packed_conv"], err)
+    return worst
+
+
 def phase_model(dev) -> None:
     import torch
 
@@ -351,8 +479,72 @@ def phase_model(dev) -> None:
     torch.backends.cudnn.allow_tf32 = True
 
 
+def psnr_pm1(a, b) -> float:
+    """PSNR of two [-1, 1] images (peak 2), as tests/test_quantized.py takes it."""
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    return 10 * math.log10(4.0 / max(mse, 1e-12))
+
+
+def phase_int8_model(dev) -> None:
+    """The int8 and int8_pallas forwards of the default generator (cd 32,
+    seeded weights, 512 px, B=2), calibrated on their input: against the
+    bf16 packed forward (>= 30 dB), against each other (<= 0.02), with the
+    kernels against the plain versions (>= 40 dB, max abs <= 0.05: in bf16,
+    A's and B's last-ulp differences from their plain versions move the
+    interior, and an int8 code that flips at a rounding boundary moves the
+    output by a few bf16 steps; the tolerance of the port-vs-JAX test of
+    this forward), and their launches."""
+    import torch
+
+    from uegan_tpu_torch.infer import quantized
+
+    g, _ = seeded_generator(torch.bfloat16, dev)
+    x = torch.rand((2, IMG, IMG, 3), generator=torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev) * 2 - 1
+    zero = dict.fromkeys(KERNELS, 0)
+    outs = {}
+    with torch.inference_mode():
+        tabs = quantized.build_quant_tables(g, calib_batch=x)
+        bf = packed_forward(g)(x)
+        for mode in ("int8", "int8_pallas"):
+            fwd = quantized.make_int8_eval(g, tabs, use_pallas=mode == "int8_pallas")
+            reset_counts()
+            outs[mode] = fwd(x)
+            torch.cuda.synchronize()
+            run = counts()
+            with plain_versions():
+                plain = fwd(x)
+            torch.cuda.synchronize()
+            check_counts(f"the plain {mode} forward", counts(), run)
+            check_counts(f"one {mode} forward", run, {
+                **zero, "gam_stats": 4, "upsample2x": 3, "s2d_convert": 1,
+                "residual_tail_d2s": 1, "packed_conv_int8": int(mode == "int8_pallas")})
+            t = outs[mode]
+            if not bool(torch.isfinite(t).all()) or t.shape != x.shape:
+                raise AssertionError(f"{mode} output: shape {tuple(t.shape)}, finite "
+                                     f"{bool(torch.isfinite(t).all())}")
+            p = psnr_pm1(t, bf)
+            dk = (t.float() - plain.float()).abs()
+            pk = psnr_pm1(t, plain)
+            log("4 model", f"cd32 {IMG}px B=2 {mode}: vs bf16 packed forward {p:.2f} dB (limit "
+                           f">= 30), max abs {float((t.float() - bf.float()).abs().max()):.4f}; "
+                           f"kernels vs plain {pk:.2f} dB (limit >= 40), max abs "
+                           f"{float(dk.max()):.3e} (limit 0.05), {int((dk > 0.02).sum())} of "
+                           f"{dk.numel()} over 0.02; launches per forward {run}")
+            if p < 30.0 or pk < 40.0 or float(dk.max()) > 0.05:
+                raise AssertionError(f"{mode}: {p:.2f} dB from bf16, kernels vs plain {pk:.2f} "
+                                     f"dB, max {float(dk.max())}")
+    d = float((outs["int8_pallas"].float() - outs["int8"].float()).abs().max())
+    log("4 model", f"int8_pallas vs int8: max abs {d:.3e} (limit 0.02); scales {tabs['sc']}")
+    if d > 0.02:
+        raise AssertionError(f"int8_pallas differs from int8 by {d}")
+
+
 def phase_end_to_end(dev, tmp: str) -> dict:
-    """``--mode test`` twice, canonical then packed; each run's launches."""
+    """``--mode test`` three times: canonical, packed, and int8 packed with
+    kernel E (``--quantized_inference int8_pallas``); each run's launches.
+    The int8 run calibrates once on its first batch, a bf16 packed forward
+    that launches A 4, B 3 and C 1 times."""
     import numpy as np
     import torch
     from PIL import Image
@@ -382,9 +574,14 @@ def phase_end_to_end(dev, tmp: str) -> dict:
 
     zero = dict.fromkeys(KERNELS, 0)
     expect = {"canonical": {**zero, "gam_stats": 10, "upsample2x": 8},
-              "packed": {**zero, "s2d_convert": 2, "residual_tail_d2s": 2, "upsample2x": 6}}
+              "packed": {**zero, "s2d_convert": 2, "residual_tail_d2s": 2, "upsample2x": 6},
+              "int8_pallas": {**zero, "packed_conv_int8": 2, "gam_stats": 12, "upsample2x": 9,
+                              "s2d_convert": 3, "residual_tail_d2s": 2}}
+    flags = {"canonical": ["--packed_inference", "false"], "packed": [],
+             "int8_pallas": ["--quantized_inference", "int8_pallas"]}
+    limit = {"canonical": 35.0, "packed": 35.0, "int8_pallas": 30.0}
     launches = {}
-    for path, flag in (("canonical", "false"), ("packed", None)):
+    for path in ("canonical", "packed", "int8_pallas"):
         root = os.path.join(tmp, f"results_{path}")
         models = os.path.join(root, "UEGAN-FiveK", "models")
         os.makedirs(models)
@@ -397,8 +594,7 @@ def phase_end_to_end(dev, tmp: str) -> dict:
                 "--test_img_size", str(IMG), "--val_batch_size", "4", "--pretrained_model", "92",
                 "--is_test_nima", "false", "--is_test_psnr_ssim", "true",
                 "--compute_dtype", "bfloat16", "--num_workers", "4"]
-        if flag is not None:
-            argv += ["--packed_inference", flag]
+        argv += flags[path]
         t0 = time.time()
         reset_counts()
         res = cli.run(argv)
@@ -424,9 +620,9 @@ def phase_end_to_end(dev, tmp: str) -> dict:
         log("5 end to end", f"--mode test {path} bf16 B=4: 8 PNGs {IMG}x{IMG}, PSNR "
                             f"{res['psnr']:.4f} dB, SSIM {res['ssim']:.4f} vs labels; launches "
                             f"{launched} for 2 batches; vs f32 plain canonical forward: PSNR "
-                            f"{psnr:.2f} dB (limit >= 35), max |du8| {int(diff.max())}, mean "
-                            f"|du8| {diff.mean():.4f}; {secs:.1f} s")
-        if psnr < 35.0:
+                            f"{psnr:.2f} dB (limit >= {limit[path]:g}), max |du8| "
+                            f"{int(diff.max())}, mean |du8| {diff.mean():.4f}; {secs:.1f} s")
+        if psnr < limit[path]:
             raise AssertionError(f"{path} bf16 outputs only {psnr:.2f} dB from the f32 forward")
         launches[path] = launched
     return launches
@@ -458,6 +654,22 @@ def phase_timing(dev, card: str) -> dict:
                     f"{fwd['canonical']['kernels']:.3f} ms/forward, "
                     f"{b * 1000 / fwd['packed']['kernels']:.1f} vs "
                     f"{b * 1000 / fwd['canonical']['kernels']:.1f} img/s [{card}]")
+    # the int8 forwards (calibrated on x) beside the bf16 packed one, kernels on,
+    # in the order packed, int8, int8_pallas, int8_pallas, int8, packed
+    from uegan_tpu_torch.infer import quantized
+
+    with torch.inference_mode():
+        tabs = quantized.build_quant_tables(g, calib_batch=x)
+        steps = {"packed bf16": packed_forward(g),
+                 "int8": quantized.make_int8_eval(g, tabs),
+                 "int8_pallas": quantized.make_int8_eval(g, tabs, use_pallas=True)}
+        times = {k: [] for k in steps}
+        for k in ("packed bf16", "int8", "int8_pallas", "int8_pallas", "int8", "packed bf16"):
+            times[k].append(cuda_ms(lambda: steps[k](x), iters=10))
+    for k, v in times.items():
+        fwd[k] = {"kernels": sum(v) / len(v)}
+        log("6 timing", f"{k} forward {IMG}px B={b} with kernels: {fwd[k]['kernels']:.3f} "
+                        f"ms/forward, {b * 1000 / fwd[k]['kernels']:.1f} img/s (runs {v}) [{card}]")
 
     def turns(kern, plain, lib, iters):
         """Kernel, plain, library call: CUDA-event ms per call, each the mean
@@ -469,15 +681,18 @@ def phase_timing(dev, card: str) -> dict:
                 t[k].append(cuda_ms(fns[k], iters))
         return {k: (sum(v) / len(v) if v else None) for k, v in t.items()}
 
-    per = {name: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bytes": 0} for name in KERNELS}
+    per = {name: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bytes": 0, "ops": 0,
+                  "peak": None} for name in KERNELS}
 
-    def add(name, t, nbytes):
+    def add(name, t, nbytes, ops=0, peak=None):
         for k in ("kernel", "plain", "library"):
             if t[k] is None:
                 per[name][k] = None
             else:
                 per[name][k] += t[k]
         per[name]["bytes"] += nbytes
+        per[name]["ops"] += ops
+        per[name]["peak"] = peak
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     with torch.inference_mode():
@@ -536,15 +751,89 @@ def phase_timing(dev, card: str) -> dict:
         add("residual_tail_d2s", t, rs[0].numel() * 2 * 3)
         log("6 timing", f"residual_tail_d2s {pshape} bf16: kernel {t['kernel'] * 1e3:.1f} us, "
                         f"plain {t['plain'] * 1e3:.1f} us per call [{card}]")
+        timing_int8(dev, card, gen, b, add)
     for name in KERNELS:
         p = per[name]
-        p["bound"] = p["bytes"] / HBM_BYTES_PER_S * 1e3
-        lib = "n/a" if p["library"] is None else f"{p['library']:.4f}"
-        log("6 timing", f"{name} per forward: kernel {p['kernel']:.4f} ms, plain "
-                        f"{p['plain']:.4f} ms, library {lib} ms, bound {p['bound']:.4f} ms "
-                        f"({p['bytes'] / 1e6:.1f} MB at 3.35 TB/s), "
+        t_bytes = p["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = p["ops"] / p["peak"] * 1e3 if p["ops"] else 0.0
+        p["bound"], p["bound_by"] = max((t_bytes, "bytes"), (t_ops, "operations"))
+        lib = "none" if p["library"] is None else f"{p['library']:.4f}"
+        log("6 timing", f"{name} per {'forward' if name != 'packed_conv' else 'dec4-shape call'}: "
+                        f"kernel {p['kernel']:.4f} ms, plain {p['plain']:.4f} ms, library {lib} "
+                        f"ms, bound {p['bound']:.4f} ms by {p['bound_by']} "
+                        f"({p['bytes'] / 1e6:.1f} MB at 3.35 TB/s: {t_bytes:.4f} ms; "
+                        f"{p['ops'] / 1e9:.1f} G operations: {t_ops:.4f} ms), "
                         f"{p['bound'] / p['kernel']:.0%} of the bound [{card}]")
     return {"forward": fwd, "per_kernel": per}
+
+
+def timing_int8(dev, card: str, gen, b: int, add) -> None:
+    """E at the main path's ga1 site (one call a forward) against its plain
+    version (the unfused chain the int8 mode runs there) and torch._int_mm
+    alone; E's SxS body at the dec4 site against the int8 mode's unfused
+    chain there; F at the dec4 shape (bf16, act none) against its plain
+    version and F.conv2d with bias."""
+    import torch
+    import torch.nn.functional as F
+
+    from uegan_tpu_torch.infer import quantized
+    from uegan_tpu_torch.ops import packed_conv as fmod
+    from uegan_tpu_torch.ops import packed_conv_int8 as emod
+    from uegan_tpu_torch.ops.conv_int8 import gemm_weight
+
+    def turns(fns: dict, iters: int) -> dict:
+        t = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            t[k].append(cuda_ms(fns[k], iters))
+        return {k: sum(v) / len(v) for k, v in t.items()}
+
+    # ga1: (B, 256, 256, 128) s8 (x) (128, 128) -> bf16
+    shape, c4 = (b, HP, HP, 4 * CD), 4 * CD
+    xq, kq, ws, bias, _ = e_inputs(shape, c4, 1, False, gen, dev)
+    cols, wt = xq.view(-1, c4), gemm_weight(kq).t()
+    t = turns({"kernel": lambda: emod.packed_conv_int8(xq, kq, ws, bias, 0),
+               "plain": lambda: emod.plain_packed_conv_int8(xq, kq, ws, bias, 0),
+               "int_mm": lambda: torch._int_mm(cols, wt)}, 20)
+    m = xq.numel() // c4
+    add("packed_conv_int8", {**t, "library": None}, xq.numel() + m * c4 * 2 + kq.numel(),
+        2 * m * c4 * c4, INT8_PEAK_OPS)
+    log("6 timing", f"packed_conv_int8 ga1 {shape} -> {c4} bf16: kernel {t['kernel'] * 1e3:.1f} "
+                    f"us, plain (the int8 mode's conv2d_int8 + dequant) {t['plain'] * 1e3:.1f} "
+                    f"us, torch._int_mm alone {t['int_mm'] * 1e3:.1f} us per call [{card}]")
+
+    # the dec4 site: (B, 256, 256, 256) s8 (x) 3x3 -> 128, leaky, * x1p, requant
+    shape, c8 = (b, HP, HP, 8 * CD), 8 * CD
+    xq, kq, ws, bias, mul = e_inputs(shape, c4, 3, True, gen, dev)
+    fused = dict(act="leaky", mul=mul, out_scale=0.02, requant=True)
+
+    def chain():
+        acc = quantized._conv_q(xq, kq, 1, [CD, CD])
+        y = quantized.leaky(quantized.int8_epilogue(acc, ws, bias))
+        return quantized.quantize_act(y * mul, 0.02)
+
+    t = turns({"kernel": lambda: emod.packed_conv_int8(xq, kq, ws, bias, 1, **fused),
+               "kernel + strips": lambda: quantized._conv_q_fused(xq, kq, ws, bias, 1, [CD, CD],
+                                                                  **fused),
+               "unfused chain": chain}, 5)
+    m = xq.numel() // c8
+    bound = max((xq.numel() + 2 * m * c4 + m * c4) / HBM_BYTES_PER_S,
+                2 * m * c8 * 9 * c4 / INT8_PEAK_OPS) * 1e3
+    log("6 timing", f"packed_conv_int8 dec4 site {shape} -> {c4} s8 (leaky, mul, requant): "
+                    f"kernel {t['kernel']:.3f} ms, kernel + reflect strips (_conv_q_fused) "
+                    f"{t['kernel + strips']:.3f} ms, the int8 mode's unfused chain "
+                    f"{t['unfused chain']:.3f} ms per call; bound {bound:.4f} ms [{card}]")
+
+    # F at the dec4 shape, bf16, act none: F.conv2d with bias computes the same
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    k = (torch.randn((c4, c8, 3, 3), generator=gen, device=dev) / 48).to(torch.bfloat16)
+    bf = (torch.randn(c4, generator=gen, device=dev) * 0.1).to(torch.bfloat16)
+    t = turns({"kernel": lambda: fmod.packed_conv(x, k, bf, 1),
+               "plain": lambda: fmod.plain_packed_conv(x, k, bf, 1),
+               "library": lambda: F.conv2d(x.permute(0, 3, 1, 2), k, bf, padding=1)}, 5)
+    add("packed_conv", t, x.numel() * 2 + m * c4 * 2 + k.numel() * 2, 2 * m * c8 * 9 * c4,
+        BF16_PEAK_FLOPS)
+    log("6 timing", f"packed_conv dec4 shape {shape} -> {c4} bf16: kernel {t['kernel']:.3f} ms, "
+                    f"plain {t['plain']:.3f} ms, F.conv2d {t['library']:.3f} ms per call [{card}]")
 
 
 def bucket_of(name: str) -> str:
@@ -596,13 +885,18 @@ def profile(step, iters: int = 10, warmup: int = 5) -> dict:
 
 
 def phase_profile(dev, card: str) -> None:
-    """Where the device time of each forward goes (512 px, B=8, bf16)."""
+    """Where the device time of each forward goes (512 px, B=8, bf16):
+    canonical, packed, and int8 packed with kernel E."""
     import torch
+
+    from uegan_tpu_torch.infer import quantized
 
     g, _ = seeded_generator(torch.bfloat16, dev)
     x = torch.rand((8, IMG, IMG, 3), device=dev) * 2 - 1
     with torch.inference_mode():
-        for name, fn in (("canonical", g), ("packed", packed_forward(g))):
+        int8 = quantized.make_int8_eval(g, quantized.build_quant_tables(g, calib_batch=x),
+                                        use_pallas=True)
+        for name, fn in (("canonical", g), ("packed", packed_forward(g)), ("int8_pallas", int8)):
             r = profile(lambda: fn(x))
             log("7 profile", f"{name} forward {IMG}px B=8 bf16 under torch.profiler: wall "
                              f"{r['wall_ms']:.3f} ms per forward, device busy {r['busy_ms']:.3f} "
@@ -648,7 +942,9 @@ def main() -> int:
 
     worst = phase_kernels(dev)
     worst_s2d = phase_s2d_kernels(dev)
+    worst_int8 = phase_int8_kernels(dev)
     phase_model(dev)
+    phase_int8_model(dev)
     with tempfile.TemporaryDirectory(prefix="uegan_smoke_") as tmp:
         launches = phase_end_to_end(dev, tmp)
     timing = phase_timing(dev, card)
@@ -661,9 +957,13 @@ def main() -> int:
            "s2d_convert": ("uegan_tpu_torch/csrc/s2d_fuse.cu",
                            "uegan_tpu/ops/pallas/s2d_fuse.py:60"),
            "residual_tail_d2s": ("uegan_tpu_torch/csrc/s2d_fuse.cu",
-                                 "uegan_tpu/ops/pallas/s2d_fuse.py:97")}
+                                 "uegan_tpu/ops/pallas/s2d_fuse.py:97"),
+           "packed_conv_int8": ("uegan_tpu_torch/csrc/packed_conv_int8.cu",
+                                "uegan_tpu/ops/pallas/packed_conv_int8.py:236"),
+           "packed_conv": ("uegan_tpu_torch/csrc/packed_conv.cu",
+                           "uegan_tpu/ops/pallas/packed_conv.py:155")}
     err = {"gam_stats": worst["gam_stats"][0], "upsample2x": worst["upsample2x"][0],
-           **worst_s2d}
+           **worst_s2d, **worst_int8}
     kernels = []
     for name in KERNELS:
         p = timing["per_kernel"][name]
@@ -672,7 +972,7 @@ def main() -> int:
             "launches": sum(run[name] for run in launches.values()),
             "launches_by_path": {path: run[name] for path, run in launches.items()},
             "max_abs_err": err[name], "ms": p["kernel"], "plain_ms": p["plain"],
-            "bound_ms": p["bound"], "bound_by": "bytes", "library_ms": p["library"],
+            "bound_ms": p["bound"], "bound_by": p["bound_by"], "library_ms": p["library"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

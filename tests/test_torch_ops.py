@@ -86,8 +86,9 @@ def test_cpu_dispatch_and_refusals():
 
 @pytest.mark.parametrize("flags", [
     {"mode": "train"}, {"is_test_nima": True}, {"tile_size": 512}, {"mesh_spatial": 2},
-    {"test_keep_aspect": True}, {"quantized_inference": "int8"},
-    {"quantized_inference": "int8_pallas"}, {"g_use_sn": True}, {"strip_rows": 8},
+    {"test_keep_aspect": True}, {"quantized_inference": "int8", "strip_rows": 8},
+    {"quantized_inference": "int8_pallas", "tile_size": 512}, {"g_use_sn": True},
+    {"strip_rows": 8},
 ])
 def test_options_outside_the_slice_raise(flags):
     from uegan_tpu_torch.cli import check_supported
@@ -95,6 +96,8 @@ def test_options_outside_the_slice_raise(flags):
 
     check_supported(Config(mode="test", is_test_nima=False))
     check_supported(Config(mode="test", is_test_nima=False, packed_inference=False, strip_rows=8))
+    for qi in ("int8", "int8_pallas"):
+        check_supported(Config(mode="test", is_test_nima=False, quantized_inference=qi))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         check_supported(Config(**{"mode": "test", "is_test_nima": False, **flags}))
 
@@ -139,7 +142,9 @@ def test_port_imports_no_jax():
     module and no module of the JAX package."""
     code = ("import sys; import uegan_tpu_torch.cli, uegan_tpu_torch.train.tester, "
             "uegan_tpu_torch.models.generator, uegan_tpu_torch.infer.packed, "
-            "uegan_tpu_torch.ops.s2d_fuse, uegan_tpu_torch.data.pipeline; "
+            "uegan_tpu_torch.ops.s2d_fuse, uegan_tpu_torch.data.pipeline, "
+            "uegan_tpu_torch.infer.quantized, uegan_tpu_torch.ops.conv_int8, "
+            "uegan_tpu_torch.ops.packed_conv_int8, uegan_tpu_torch.ops.packed_conv; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'uegan_tpu') or m.startswith('jax_')); "
             "assert not bad, bad")

@@ -230,8 +230,9 @@ def test_packed_forward_matches_jax_and_canonical(weights, jax_packed, shape):
 
 
 def test_make_fast_eval_routing(weights):
-    """Packed for the default G with --packed_inference true; the canonical
-    step otherwise; options of later slices raise."""
+    """Packed for the default G with --packed_inference true (int8 under
+    --quantized_inference int8); the canonical step otherwise; options of
+    later slices raise."""
     from uegan_tpu_torch.config import Config
 
     sd, _, g = weights
@@ -247,8 +248,9 @@ def test_make_fast_eval_routing(weights):
     bn.load_state_dict({k: torch.from_numpy(v) for k, v in fan_in_normal_state(bn, 2).items()})
     with torch.inference_mode():
         torch.testing.assert_close(packed.make_fast_eval(bn, Config())(x), bn.eval()(x))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        packed.make_fast_eval(g, Config(quantized_inference="int8"))
+    int8_fn = packed.make_fast_eval(g, Config(quantized_inference="int8"), calib_batch=x)
+    assert int8_fn(x).dtype == torch.bfloat16  # the int8 route: bf16 whatever G's dtype
+    torch.testing.assert_close(int8_fn(x).float(), packed_fn(x), rtol=0, atol=0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         packed.make_fast_eval(g, Config(strip_rows=8))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from uegan_tpu_torch.models.blocks import to_nchw, to_nhwc
 from uegan_tpu_torch.models.generator import Generator, check_input_hw
+from uegan_tpu_torch.ops.conv_int8 import conv2d_int8
 from uegan_tpu_torch.ops.norms import instance_norm
 from uegan_tpu_torch.ops.resize2x import upsample2x
 from uegan_tpu_torch.ops.s2d_fuse import (depth_to_space, residual_tail_d2s, s2d_convert,
@@ -44,9 +45,8 @@ from uegan_tpu_torch.train.step import make_eval_step
 __all__ = ["space_to_depth", "depth_to_space", "pack_generator_params", "make_packed_eval",
            "make_fast_eval"]
 
-ROADMAP_INT8 = "int8 inference (kernel E) is ROADMAP queue 1 item 10, the next slice"
-ROADMAP_STRIPS = ("the H-strip executor (forced --strip_rows, or packed height >= 1024 "
-                  "with --strip_rows 0) is ROADMAP queue 1 item 8")
+ROADMAP_STRIPS = ("the H-strip executor, bf16 and int8 (forced --strip_rows, or packed "
+                  "height >= 1024 with --strip_rows 0), is ROADMAP queue 1 item 8")
 
 Channels = Union[int, Sequence[int]]
 
@@ -342,16 +342,25 @@ def packed_conv(xp: torch.Tensor, kp: torch.Tensor, s0: int, c_in: Channels,
     p = max(S0, S1) packed rows, cropped to S0 lead and S1 trail rows, then a
     VALID conv.  ``c_in`` is the ORIGINAL channel count (or one per concat
     part); ``bias`` is the original (Cout,) bias, tiled per output phase group
-    when the output is packed."""
+    when the output is packed.  With ``dtype=torch.int8`` xp and kp are int8
+    and the result is the exact int32 sum (:func:`conv2d_int8`; no bias or
+    act), as the JAX function returns it for int8."""
+    if dtype == torch.int8:
+        if bias is not None or act is not None:
+            raise ValueError("packed_conv: the int8 form returns the int32 sum, "
+                             "without bias or act")
+        conv = lambda t: conv2d_int8(t, kp)
+    else:
+        conv = lambda t: _conv(t, kp, bias, dtype, act)
     S = kp.shape[-1]
     s1 = S - 1 - s0
     p = max(s0, s1)
     if p == 0:
-        return _conv(xp, kp, bias, dtype, act)
+        return conv(xp)
     lp, wp = xp.shape[1], xp.shape[2]
     xpad = packed_reflect_pad(xp, p, c_in)
     r0 = p - s0
-    return _conv(xpad[:, r0:r0 + lp + s0 + s1, r0:r0 + wp + s0 + s1], kp, bias, dtype, act)
+    return conv(xpad[:, r0:r0 + lp + s0 + s1, r0:r0 + wp + s0 + s1])
 
 
 def _interp_matrix_np(in_size: int, out_size: int) -> np.ndarray:
@@ -391,6 +400,19 @@ def packed_resize2x_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) -> t
     t = torch.einsum("eoh,nhwc->neowc", mhp, x)
     y = torch.einsum("fpw,neowc->nopefc", mwp, t)
     return y.reshape(n, oh // 2, ow // 2, 4 * c)  # phase-major: (e*2+f)*C + c
+
+
+def packed_gam_stats(xp: torch.Tensor, c: int,
+                     eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GAM mean and unbiased std per ORIGINAL channel of a packed tensor,
+    each (N, C) float32, eps inside the root."""
+    n, hp, wp, _ = xp.shape
+    acc = xp.float().reshape(n, hp, wp, 4, c)
+    hw = hp * wp * 4
+    mean = acc.mean(dim=(1, 2, 3))
+    sq = (acc * acc).mean(dim=(1, 2, 3))
+    var = (sq - mean * mean) * (hw / max(hw - 1, 1))
+    return mean, torch.sqrt(torch.clamp(var, min=0.0) + eps)
 
 
 def packed_instance_norm(xp: torch.Tensor, c: int, eps: float = 1e-5) -> torch.Tensor:
@@ -523,32 +545,42 @@ def make_packed_eval(g: Generator, packed: Dict) -> Callable[[torch.Tensor], tor
 
 
 def check_packed_options(config) -> None:
-    """Raise for the options of the packed route that later slices port:
-    int8 inference and a forced strip height.  :func:`make_fast_eval` calls
-    it where it takes the packed route; the CLI calls it before it loads
+    """Raise for the option of the packed route that a later slice ports: a
+    forced strip height (bf16 or int8).  :func:`make_fast_eval` calls it
+    where it takes the packed route; the CLI calls it before it loads
     anything."""
-    if config.quantized_inference:
-        raise NotImplementedError(f"--quantized_inference {config.quantized_inference}: "
-                                  f"{ROADMAP_INT8}")
     if config.strip_rows > 0:
         raise NotImplementedError(f"--strip_rows {config.strip_rows}: {ROADMAP_STRIPS}")
 
 
-def make_fast_eval(g: Generator, config) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_fast_eval(g: Generator, config,
+                   calib_batch: Optional[torch.Tensor] = None) -> Callable[[torch.Tensor],
+                                                                           torch.Tensor]:
     """The inference forward for ``config``: packed when
     ``config.packed_inference`` is set and G has the default config, else
     the canonical eval step; the same routing as the JAX package, by the
-    model's semantics, not by device.  Call it after the weights are loaded:
-    the packed kernels are made from G's weights at this call.
+    model's semantics, not by device.  Under ``--quantized_inference int8``
+    or ``int8_pallas`` the packed route is the int8 forward
+    (``infer/quantized.py:make_int8_eval``), its activation scales
+    calibrated on ``calib_batch`` (in [-1, 1]; a seeded random batch when
+    None).  Call it after the weights are loaded: the packed (and quantized)
+    kernels are made from G's weights at this call.
 
-    Returns ``fn(x)``: (N, H, W, 3) in [-1, 1] -> (N, H, W, 3) in G's dtype.
+    Returns ``fn(x)``: (N, H, W, 3) in [-1, 1] -> (N, H, W, 3), in G's dtype
+    (bfloat16 on the int8 route).
     """
     if not (config.packed_inference and is_default_generator(g)):
         return make_eval_step(g)
     check_packed_options(config)
     g.eval()
-    fn = make_packed_eval(g, pack_generator_params(g.state_dict(), g.conv_dim,
-                                                   device=g.enc1.main[1].weight.device))
+    if config.quantized_inference:
+        from uegan_tpu_torch.infer.quantized import make_int8_eval
+
+        fn = make_int8_eval(g, use_pallas=config.quantized_inference == "int8_pallas",
+                            calib_batch=calib_batch)
+    else:
+        fn = make_packed_eval(g, pack_generator_params(g.state_dict(), g.conv_dim,
+                                                       device=g.enc1.main[1].weight.device))
     auto_strips = config.strip_rows == 0
 
     def packed_step(img_raw: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` a source, all started together, and the objects are linked into one
 shared library with a plain C interface, at first use, in the git-ignored
 ``csrc/build/`` directory beside the sources.  The library's name carries a
-hash of the sources and flags, so an edited source builds anew and an
-unchanged one is loaded as it is.  Nothing is built or loaded at import time:
+hash of the sources, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header builds anew and an unchanged tree is loaded as
+it is.  Nothing is built or loaded at import time:
 this module is imported on machines with no CUDA toolkit, where only the
 plain PyTorch versions of the kernels run.
 """
@@ -26,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -41,7 +43,16 @@ _SIGNATURES = {
     "uegan_s2d_convert": [_P, _P, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64, _I64, _P],
     # res, xp, out, dtype, n, hp, wp, c, stream
     "uegan_residual_tail_d2s": [_P, _P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, _P],
+    # x, wts, w_scale, bias, mul, out, n, l, w, cin, cout, S, s0, act, requant,
+    # inv_scale, vec, stream
+    "uegan_packed_conv_int8": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_float, ctypes.c_int, _P],
+    # x, wts, bias, out, dtype, n, l, w, cin, cout, S, s0, act, stream
+    "uegan_packed_conv": [_P, _P, _P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, _I64,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
 }
+ACTS = {"none": 0, "leaky": 1, "tanh": 2}  # the C entry points' act argument
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -60,28 +71,46 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libuegan_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list) -> None:
+    """Run the commands side by side; raise with every failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
-    """Compile the kernels if no library for the current sources exists."""
+    """Compile the kernels if no library for the current sources exists:
+    one nvcc a source, started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees the whole file or none
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                  for src, obj in zip(sources(), objs)])
+        tmp = os.path.join(tmpdir, "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, out)  # atomic: a concurrent loader sees the whole file or none
     return out
 
 

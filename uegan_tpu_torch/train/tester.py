@@ -6,9 +6,12 @@ files.  The batch is normalized, enhanced and quantized to uint8 on the
 device, so only 1-byte pixels cross to and from it.  Every batch runs at
 ``val_batch_size``: the tail batch is padded with zeros and cropped back,
 as in the JAX package.  The forward is ``infer/packed.py:make_fast_eval``
-(packed under the default ``--packed_inference true``), built at the first
+(packed under the default ``--packed_inference true``; int8 under
+``--quantized_inference int8`` or ``int8_pallas``), built at the first
 batch, after the checkpoint load, so that the packed kernels are made from
-the loaded weights and not from the random init.
+the loaded weights and not from the random init.  The int8 forward's
+activation scales are calibrated on that first batch as it runs: padded to
+``val_batch_size`` and normalized to [-1, 1] in f32, as in the JAX Tester.
 """
 
 from __future__ import annotations
@@ -78,9 +81,9 @@ class Tester:
         self._fast_fn = None  # re-pack from the loaded weights
         print(f"=========== loaded trained models (epochs: {resume_epochs})! ===========")
 
-    def _fast_eval(self):
+    def _fast_eval(self, calib_batch: torch.Tensor):
         if self._fast_fn is None:
-            self._fast_fn = make_fast_eval(self.G, self.args)
+            self._fast_fn = make_fast_eval(self.G, self.args, calib_batch=calib_batch)
         return self._fast_fn
 
     def _run(self, raw_batch: np.ndarray, u8_out: bool) -> np.ndarray:
@@ -88,7 +91,7 @@ class Tester:
         raw = _pad_batch(np.asarray(raw_batch), max(b, self.args.val_batch_size))
         x = normalize_u8(torch.from_numpy(np.ascontiguousarray(raw)).to(self.device))
         with torch.inference_mode():
-            y = self._fast_eval()(x)
+            y = self._fast_eval(x)(x)
             y = quantize_u8(y) if u8_out else y.float()
         return y.cpu().numpy()[:b]
 
