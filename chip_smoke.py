@@ -10,7 +10,9 @@ a source, started together) and runs seven phases, each of which ends the
 run with a non-zero exit on failure:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
-2. build: nvcc for sm_90a, with the seconds it took;
+2. build: nvcc for sm_90a, with the seconds it took, and from ptxas's -v
+   report one line a kernel of E's and F's sources: registers, spills and
+   shared memory;
 3. kernels vs plain: gam_stats (A) and upsample2x (B) against their plain
    PyTorch versions run in float64 and rounded, at the shapes the 512 px
    canonical forward gives them (batch 4), in float32 and bfloat16, and at
@@ -21,11 +23,12 @@ run with a non-zero exit on failure:
    and +-inf inputs to D: bit-equal (NaN compared as NaN).
    packed_conv_int8 (E) against its plain version at the ga1 shape, the
    dec4 site (3x3, leaky, multiply, requant) and the dec5_0 site (requant)
-   of the 512 px int8 forward (batch 4), a 5x5 12-channel tanh case and
-   ragged shapes: bit-equal in every column, tanh within one bfloat16 ulp or
-   one int8 step.  packed_conv (F) against its plain version run in float64,
-   in float32 and bfloat16, at the dec4 shape (batch 2), a 5x5 case and
-   ragged ones, with A's and B's tolerances;
+   of the 512 px int8 forward (batch 4), a 5x5 12-channel tanh case, ragged
+   shapes and the tensor-core body's tile edges (a partial last M tile,
+   W = 200, Cout = 192): bit-equal in every column, tanh within one bfloat16
+   ulp or one int8 step.  packed_conv (F) against its plain version run in
+   float64, in float32 and bfloat16, at the dec4 shape (batch 2), a 5x5
+   case, ragged ones and the same tile edges, with A's and B's tolerances;
 4. model: the default generator (conv_dim 32, seeded N(0, 1/fan_in) weights)
    at 512 px in float32 with TF32 off.  Canonical forward: kernels against
    plain versions, max |d| <= 1e-4, launches gam_stats 5, upsample2x 4.
@@ -52,8 +55,8 @@ run with a non-zero exit on failure:
    and int8_pallas forwards beside the packed one; each kernel's time beside
    its plain version's, its bound and, for A, B, C and F, the one PyTorch
    library call that computes the same function (E at ga1 beside
-   torch._int_mm alone, and at the dec4 site beside the int8 mode's
-   unfused chain), from CUDA events;
+   torch._int_mm alone, and at the dec4 and dec5_0 sites beside the int8
+   mode's unfused chain), from CUDA events;
 7. profile: the canonical, packed and int8_pallas forwards at 512 px, batch
    8, bfloat16, under torch.profiler: wall and device-busy time per forward,
    the device's idle share, and device time in buckets of kernel names.
@@ -69,6 +72,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -92,7 +96,10 @@ CD = 32
 HP = IMG // 2  # packed height and width
 # kernel E's cases: (what, (N, L, W, Cin), Cout, S, s0, act, mul, requant); the
 # main path's ga1 (1x1), the dec4 and dec5_0 sites the fused path has, an
-# enc1-like 5x5 with 12 channels and tanh, and ragged shapes
+# enc1-like 5x5 with 12 channels and tanh, ragged shapes, and the edges of
+# the tensor-core body's tiles: an M count that leaves a partial last tile,
+# W = 200 (not a multiple of the 128-column box) and Cout = 192 (a ragged
+# second N tile)
 E_CASES = [
     ("ga1", (4, HP, HP, 4 * CD), 4 * CD, 1, 0, "none", False, False),
     ("dec4 site", (4, HP, HP, 8 * CD), 4 * CD, 3, 1, "leaky", True, True),
@@ -102,6 +109,9 @@ E_CASES = [
     ("ragged requant", (2, 7, 9, 5), 6, 3, 1, "leaky", True, True),
     ("ragged S=4", (1, 7, 9, 5), 3, 4, 2, "tanh", False, True),
     ("ragged 1x1", (3, 7, 9, 5), 70, 1, 0, "none", False, False),
+    ("partial M tile", (1, 5, 27, 4 * CD), 4 * CD, 3, 1, "leaky", True, False),
+    ("W=200", (2, 6, 200, 4 * CD), 4 * CD, 3, 1, "none", True, True),
+    ("Cout=192", (2, 8, 64, 4 * CD), 192, 3, 1, "leaky", True, True),
 ]
 # kernel F's cases: (what, (N, L, W, Cin), Cout, S, s0, act)
 F_CASES = [
@@ -109,11 +119,14 @@ F_CASES = [
     ("S=5", (2, 64, 64, 4 * CD), 4 * CD, 5, 2, "tanh"),
     ("ragged S=4", (2, 7, 9, 5), 6, 4, 2, "none"),
     ("ragged 1x1", (1, 7, 9, 5), 70, 1, 0, "leaky"),
+    ("partial M tile", (1, 5, 27, 4 * CD), 4 * CD, 3, 1, "leaky"),
+    ("W=200", (2, 6, 200, 4 * CD), 4 * CD, 3, 1, "none"),
+    ("Cout=192", (2, 8, 64, 4 * CD), 192, 3, 1, "tanh"),
 ]
 # phase 7: (bucket, substrings of the kernel name), first match wins
 BUCKETS = [
     ("packed_conv_int8 kernel (E)", ("Int8Epilogue",)),
-    ("packed_conv kernel (F)", ("FloatEpilogue",)),
+    ("packed_conv kernel (F)", ("FloatEpilogue", "conv_f32")),
     ("gam_stats kernel (A)", ("partial_sums", "finish<")),
     ("upsample2x kernel (B)", ("upsample2x_ac",)),
     ("s2d_convert kernel (C)", ("s2d_convert_kernel",)),
@@ -138,6 +151,33 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_summary(report: dict, tc_smem: int) -> list:
+    """One line a kernel of E's and F's sources from ptxas's -v report:
+    registers, spills and shared memory (the tensor-core body's is dynamic)."""
+    out = []
+    for src in ("packed_conv.cu", "packed_conv_int8.cu"):
+        name, spill = None, "?"
+        for ln in report.get(src, []):
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                e = re.search(r"(Int8Epilogue|FloatEpilogue)I((?:L[ib]\d+E)+)E", m.group(1))
+                if e:
+                    args = ",".join(re.findall(r"\d+", e.group(2)))
+                    name = f"conv_kernel<{e.group(1)}<{args}>>"
+                else:
+                    name = "conv_f32" if "conv_f32" in m.group(1) else m.group(1)[:60]
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", ln)
+            if m and name:
+                smem = (f"{m.group(2)} B static shared memory" if m.group(2)
+                        else f"{tc_smem} B dynamic shared memory")
+                out.append(f"{src} {name}: {m.group(1)} registers, {spill}, {smem}")
+                name, spill = None, "?"
+    return out
 
 
 def bf16_ulp(t):
@@ -821,7 +861,26 @@ def timing_int8(dev, card: str, gen, b: int, add) -> None:
     log("6 timing", f"packed_conv_int8 dec4 site {shape} -> {c4} s8 (leaky, mul, requant): "
                     f"kernel {t['kernel']:.3f} ms, kernel + reflect strips (_conv_q_fused) "
                     f"{t['kernel + strips']:.3f} ms, the int8 mode's unfused chain "
-                    f"{t['unfused chain']:.3f} ms per call; bound {bound:.4f} ms [{card}]")
+                    f"{t['unfused chain']:.3f} ms per call; bound {bound:.4f} ms, "
+                    f"{bound / t['kernel']:.0%} of it [{card}]")
+
+    # the dec5_0 site: (B, 256, 256, 128) s8 (x) 3x3 -> 128, requant
+    xq, kq, ws, bias, _ = e_inputs((b, HP, HP, c4), c4, 3, False, gen, dev)
+    fused = dict(out_scale=0.02, requant=True)
+
+    def chain5():
+        acc = quantized._conv_q(xq, kq, 1, CD)
+        return quantized.quantize_act(quantized.int8_epilogue(acc, ws, bias), 0.02)
+
+    t5 = turns({"kernel": lambda: emod.packed_conv_int8(xq, kq, ws, bias, 1, **fused),
+                "unfused chain": chain5}, 5)
+    m5 = xq.numel() // c4
+    bound5 = max((xq.numel() + m5 * c4 + kq.numel()) / HBM_BYTES_PER_S,
+                 2 * m5 * c4 * 9 * c4 / INT8_PEAK_OPS) * 1e3
+    log("6 timing", f"packed_conv_int8 dec5_0 site {(b, HP, HP, c4)} -> {c4} s8 (requant): "
+                    f"kernel {t5['kernel']:.3f} ms, the int8 mode's unfused chain "
+                    f"{t5['unfused chain']:.3f} ms per call; bound {bound5:.4f} ms, "
+                    f"{bound5 / t5['kernel']:.0%} of it [{card}]")
 
     # F at the dec4 shape, bf16, act none: F.conv2d with bias computes the same
     x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -833,7 +892,8 @@ def timing_int8(dev, card: str, gen, b: int, add) -> None:
     add("packed_conv", t, x.numel() * 2 + m * c4 * 2 + k.numel() * 2, 2 * m * c8 * 9 * c4,
         BF16_PEAK_FLOPS)
     log("6 timing", f"packed_conv dec4 shape {shape} -> {c4} bf16: kernel {t['kernel']:.3f} ms, "
-                    f"plain {t['plain']:.3f} ms, F.conv2d {t['library']:.3f} ms per call [{card}]")
+                    f"plain {t['plain']:.3f} ms, F.conv2d {t['library']:.3f} ms per call, "
+                    f"kernel / F.conv2d {t['kernel'] / t['library']:.2f} [{card}]")
 
 
 def bucket_of(name: str) -> str:
@@ -935,10 +995,12 @@ def main() -> int:
                          f"CUDA {torch.version.cuda}; nvcc {nvcc}")
 
     t0 = time.time()
-    lib_path = _build.build()
+    lib_path = _build.build(ptxas_verbose=True)
     _build.load()
     log("2 build", f"{lib_path.name} from {[s.name for s in _build.sources()]} "
                    f"in {time.time() - t0:.1f} s")
+    for line in ptxas_summary(_build.ptxas_report, _build.load().uegan_tc_conv_smem_bytes()):
+        log("2 build", line)
 
     worst = phase_kernels(dev)
     worst_s2d = phase_s2d_kernels(dev)

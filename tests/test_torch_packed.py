@@ -229,6 +229,20 @@ def test_packed_forward_matches_jax_and_canonical(weights, jax_packed, shape):
     np.testing.assert_allclose(got, canon, rtol=0, atol=2e-3)
 
 
+def test_cached_constants_serve_autograd_after_inference_mode():
+    """The packed path caches its pad indices, phase masks and resize
+    matrices; made first under inference mode, they must still serve a
+    forward with autograd on (the int8 tables are built that way)."""
+    shape, out_hw = (1, 6, 10, 12), (12, 20)  # shapes no other test caches
+    with torch.inference_mode():
+        packed.packed_reflect_pad(torch.zeros(shape), 2, 3)
+        packed.packed_resize2x_align_corners(torch.zeros(shape), out_hw)
+    y = torch.randn(shape, requires_grad=True)
+    (packed.packed_reflect_pad(y, 2, 3).sum()
+     + packed.packed_resize2x_align_corners(y, out_hw).sum()).backward()
+    assert y.grad is not None and bool(torch.isfinite(y.grad).all())
+
+
 def test_make_fast_eval_routing(weights):
     """Packed for the default G with --packed_inference true (int8 under
     --quantized_inference int8); the canonical step otherwise; options of

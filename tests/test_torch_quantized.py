@@ -33,6 +33,7 @@ from uegan_tpu_torch.models.generator import Generator
 from uegan_tpu_torch.models.initializers import fan_in_normal_state
 from uegan_tpu_torch.ops import packed_conv_int8 as e_mod
 from uegan_tpu_torch.ops.conv_int8 import conv2d_int8
+from uegan_tpu_torch.ops.packed_conv import kernel_operands as f_operands
 from uegan_tpu_torch.ops.packed_conv import packed_conv as f_kernel
 from uegan_tpu_torch.ops.packed_conv import plain_packed_conv
 from uegan_tpu_torch.utils.image_io import read_png_rgb
@@ -237,6 +238,53 @@ def test_packed_conv_plain_matches_pallas(S, s0, L, W, cin, cout, th):
     assert got_b.dtype == torch.bfloat16
     np.testing.assert_allclose(got_b.float().numpy(), want_b.float().numpy(), rtol=1 / 128,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,S,s0,cin", [
+    (torch.int8, 3, 1, 5),       # Cin 5 -> 16 zero-padded channels
+    (torch.int8, 1, 0, 32),      # 16-byte rows already: x is passed as it is
+    (torch.bfloat16, 4, 2, 12),  # Cin 12 -> 16
+])
+def test_kernel_operands_rebuild_the_conv_by_taps(dtype, S, s0, cin):
+    """The wrappers' host-side layout for the tensor-core body of E and F:
+    weights K-major (Cout, S, S, Cpad) and channels zero-padded to 16-byte
+    rows.  The conv rebuilt from those operands as the kernel decomposes it
+    (for each tap, the zero-filled shifted input times the tap's weights,
+    summed in int64 or f32) equals the plain versions: E's bit for bit after
+    its epilogue, F's to 1e-5."""
+    rng = np.random.default_rng(7)
+    n, l, w, cout = 2, 5, 7, 24
+    if dtype == torch.int8:
+        xp = torch.from_numpy(rng.integers(-127, 128, (n, l, w, cin), dtype=np.int8))
+        kp = torch.from_numpy(rng.integers(-127, 128, (cout, cin, S, S), dtype=np.int8))
+        x, wts = e_mod.kernel_operands(xp, kp)
+        mult, acc_t = 16, torch.int64
+    else:
+        xp = torch.from_numpy(rng.standard_normal((n, l, w, cin)).astype(np.float32)).to(BF16)
+        kp = torch.from_numpy(rng.standard_normal((cout, cin, S, S)).astype(np.float32)).to(BF16)
+        x, wts = f_operands(xp, kp)
+        mult, acc_t = 8, torch.float32
+    cpad = -(-cin // mult) * mult
+    assert x.shape == (n, l, w, cpad) and wts.shape == (cout, S, S, cpad)
+    assert x.dtype == wts.dtype == dtype and x.is_contiguous() and wts.is_contiguous()
+    assert x.data_ptr() % 16 == 0 and wts.data_ptr() % 16 == 0
+    assert not x[..., cin:].any() and not wts[..., cin:].any()
+    assert torch.equal(x[..., :cin], xp) and torch.equal(wts[..., :cin], kp.permute(0, 2, 3, 1))
+    assert (x.data_ptr() == xp.data_ptr()) == (cin % mult == 0)
+    xz = torch.nn.functional.pad(x.to(acc_t), (0, 0, s0, S - 1 - s0, s0, S - 1 - s0))
+    acc = torch.zeros((n, l, w, cout), dtype=acc_t)
+    for si in range(S):
+        for sj in range(S):
+            acc += xz[:, si:si + l, sj:sj + w] @ wts[:, si, sj].to(acc_t).T
+    if dtype == torch.int8:
+        ws = torch.from_numpy(rng.uniform(1e-4, 3e-4, cout).astype(np.float32))
+        b = torch.from_numpy((rng.standard_normal(cout) * 0.1).astype(np.float32))
+        got = e_mod.int8_epilogue(acc, ws, b, "leaky")
+        assert torch.equal(got, e_mod.plain_packed_conv_int8(xp, kp, ws, b, s0, act="leaky"))
+    else:
+        b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+        want = plain_packed_conv(xp.float(), kp.float(), b, s0)
+        np.testing.assert_allclose((acc + b).numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -266,11 +266,14 @@ def pack_generator_params(state: Dict, conv_dim: int,
 @functools.lru_cache(maxsize=64)
 def _pad_sources(length: int, pad: int, device: torch.device) -> Tuple[torch.Tensor, ...]:
     """Rows that feed the pad rows of one axis: (phase-0 and phase-1 sources
-    of the lead rows, the same of the trail rows), as index tensors."""
+    of the lead rows, the same of the trail rows), as index tensors.  Like
+    every cached tensor here it is made outside inference mode, so that a
+    forward with autograd on can use it after one under inference mode."""
     lead, trail = range(pad, 0, -1), range(1, pad + 1)
     srcs = ([m for m in lead], [m - 1 for m in lead],
             [length - m for m in trail], [length - m - 1 for m in trail])
-    return tuple(torch.tensor(s, device=device) for s in srcs)
+    with torch.inference_mode(False):
+        return tuple(torch.tensor(s, device=device) for s in srcs)
 
 
 @functools.lru_cache(maxsize=64)
@@ -281,7 +284,8 @@ def _phase0_channels(parts: Tuple[int, ...], axis: int, device: torch.device) ->
     for cp in parts:
         k = np.arange(4 * cp)
         masks.append((k // (2 * cp) if axis == 0 else (k // cp) % 2) == 0)
-    return torch.from_numpy(np.concatenate(masks)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.concatenate(masks)).to(device)
 
 
 def packed_reflect_pad(x: torch.Tensor, pad: int, c: Channels) -> torch.Tensor:
@@ -384,7 +388,8 @@ def _phase_matrix(in_size: int, out_size: int, device: torch.device,
     """(2, out/2, in): the interpolation matrix's rows split by output phase,
     on ``device`` in ``dtype``; made once per shape."""
     m = _interp_matrix_np(in_size, out_size).reshape(out_size // 2, 2, in_size)
-    return torch.from_numpy(np.ascontiguousarray(m.transpose(1, 0, 2))).to(device, dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(m.transpose(1, 0, 2))).to(device, dtype)
 
 
 def packed_resize2x_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

@@ -44,7 +44,7 @@ _SIGNATURES = {
     # res, xp, out, dtype, n, hp, wp, c, stream
     "uegan_residual_tail_d2s": [_P, _P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, _P],
     # x, wts, w_scale, bias, mul, out, n, l, w, cin, cout, S, s0, act, requant,
-    # inv_scale, vec, stream
+    # inv_scale, vec_mul, stream
     "uegan_packed_conv_int8": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_float, ctypes.c_int, _P],
@@ -53,8 +53,13 @@ _SIGNATURES = {
                           ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
 }
 ACTS = {"none": 0, "leaky": 1, "tanh": 2}  # the C entry points' act argument
+# codes past the CUDA runtime's that the tensor-core body returns
+# (csrc/packed_conv_body.cuh)
+_BODY_ERRORS = {10001: "cuTensorMapEncodeTiled is not available",
+                10002: "cuTensorMapEncodeTiled refused a tensor map"}
 
 _lib: Optional[ctypes.CDLL] = None
+ptxas_report: dict = {}
 
 
 def nvcc_path() -> str:
@@ -83,31 +88,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libuegan_kernels-{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list) -> None:
-    """Run the commands side by side; raise with every failure's output."""
+def _run_all(cmds: list) -> list:
+    """Run the commands side by side; raise with every failure's output, else
+    return each command's standard error."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                     text=True)) for cmd in cmds]
-    failed = []
+    failed, errs = [], []
     for cmd, proc in procs:
         _, err = proc.communicate()
+        errs.append(err)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return errs
 
 
-def build() -> Path:
+def build(ptxas_verbose: bool = False) -> Path:
     """Compile the kernels if no library for the current sources exists:
-    one nvcc a source, started together, then one link."""
+    one nvcc a source, started together, then one link.  With
+    ``ptxas_verbose`` each compile also prints ptxas's registers, shared
+    memory and spills per kernel (the code is the same), kept in
+    ``ptxas_report`` as {source name: lines}."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
+    verbose = ["-Xptxas", "-v"] if ptxas_verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objs = [os.path.join(tmpdir, src.stem + ".o") for src in sources()]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
-                  for src, obj in zip(sources(), objs)])
+        errs = _run_all([[nvcc, *NVCC_FLAGS, *verbose, "-c", str(src), "-o", obj]
+                         for src, obj in zip(sources(), objs)])
+        ptxas_report.update({src.name: [ln for ln in err.splitlines()
+                                        if "ptxas" in ln or "spill" in ln]
+                             for src, err in zip(sources(), errs)})
         tmp = os.path.join(tmpdir, "lib.so")
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, out)  # atomic: a concurrent loader sees the whole file or none
@@ -123,6 +138,8 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.uegan_tc_conv_smem_bytes.argtypes = []
+        lib.uegan_tc_conv_smem_bytes.restype = ctypes.c_int
         lib.uegan_error_string.argtypes = [ctypes.c_int]
         lib.uegan_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -132,7 +149,7 @@ def load() -> ctypes.CDLL:
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error."""
     if err != 0:
-        msg = lib.uegan_error_string(err).decode(errors="replace")
+        msg = _BODY_ERRORS.get(err) or lib.uegan_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
@@ -154,3 +171,17 @@ def check_nhwc(x, what: str) -> None:
 def dtype_code(x) -> int:
     """The C entry points' dtype argument: 0 = float32, 1 = bfloat16."""
     return 0 if x.dtype == torch.float32 else 1
+
+
+def tma_operand(t: torch.Tensor, multiple: int) -> torch.Tensor:
+    """``t`` (..., C) zero-padded on its last axis to a multiple of
+    ``multiple`` channels and 16-byte aligned, as the tensor-core body's
+    TMA loads need (16-byte row strides and base); ``t`` itself where it
+    already is."""
+    pad = -t.shape[-1] % multiple
+    if pad:
+        t = torch.nn.functional.pad(t, (0, pad))
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()
+    return t

@@ -1,8 +1,10 @@
 """Kernel F: stride-1 packed conv + bias + activation, float32 or bfloat16.
 
 Port of uegan_tpu/ops/pallas/packed_conv.py:packed_conv_pallas to a CUDA
-kernel for Hopper (csrc/packed_conv.cu, on the body it shares with kernel E,
-csrc/packed_conv_body.cuh; the design note is in the header).  The JAX
+kernel for Hopper (csrc/packed_conv.cu; the design notes are in it and in
+csrc/packed_conv_body.cuh).  bfloat16 runs on the tensor-core body it
+shares with kernel E (TMA + wgmma); float32 runs on the CUDA cores, since
+TF32 tensor cores would miss its tolerance.  The JAX
 package wires the TPU kernel nowhere (only its tests call it), and so does
 the port: ``chip_smoke.py`` holds the kernel against its plain version and
 times it.  ``packed_conv`` launches the kernel for a CUDA tensor and raises
@@ -12,6 +14,11 @@ version (``F.conv2d`` in f32 on the zero-padded input, bias, act).
 
 Both zero-pad the rows and the columns; the TPU kernel wraps its columns,
 so only output columns [s0, W - s1) are specified by it.
+
+Channel padding: the tensor-core body's TMA loads need 16-byte rows, so
+for bfloat16 ``kernel_operands`` zero-pads x's and k's channels to a
+multiple of 8 where Cin is not one (a copy; no main-path shape needs it).
+Zero channels add nothing to the sums.
 """
 
 from __future__ import annotations
@@ -42,6 +49,16 @@ def plain_packed_conv(xp: torch.Tensor, kp: torch.Tensor, bias: torch.Tensor, s0
     return y.to(xp.dtype).contiguous()
 
 
+def kernel_operands(xp: torch.Tensor, kp: torch.Tensor) -> tuple:
+    """(x, wts) as the kernel reads them: wts K-major, (Cout, S, S, Cin),
+    float32 for a float32 xp; for bfloat16 both in bfloat16 with their
+    channels zero-padded to a multiple of 8 (16-byte TMA rows)."""
+    wts = kp.permute(0, 2, 3, 1)
+    if xp.dtype == torch.float32:
+        return xp.contiguous(), wts.float().contiguous()
+    return _build.tma_operand(xp, 8), _build.tma_operand(wts, 8)
+
+
 def packed_conv(xp: torch.Tensor, kp: torch.Tensor, bias: torch.Tensor, s0: int,
                 act: str = "none") -> torch.Tensor:
     """xp (N, L, W, Cin) float32 or bfloat16, kp (Cout, Cin, S, S) and bias
@@ -66,14 +83,15 @@ def packed_conv(xp: torch.Tensor, kp: torch.Tensor, bias: torch.Tensor, s0: int,
     if max(xp.numel(), n * l * w * cout) >= _INDEX_LIMIT:
         raise ValueError(f"packed_conv: shape {tuple(xp.shape)} -> {cout} channels has 2^31 "
                          "elements or more")
-    wts = kp.permute(0, 2, 3, 1).float().contiguous()  # (Cout, S, S, Cin), exact
+    x, wts = kernel_operands(xp, kp)
     b = bias.float().contiguous()
     lib = _build.load()
     with torch.cuda.device(xp.device):
         out = torch.empty((n, l, w, cout), dtype=xp.dtype, device=xp.device)
         err = lib.uegan_packed_conv(
-            xp.data_ptr(), wts.data_ptr(), b.data_ptr(), out.data_ptr(), _build.dtype_code(xp),
-            n, l, w, cin, cout, kh, s0, _build.ACTS[act], torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), wts.data_ptr(), b.data_ptr(), out.data_ptr(), _build.dtype_code(xp),
+            n, l, w, x.shape[-1], cout, kh, s0, _build.ACTS[act],
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "packed_conv")
     packed_conv.launches += 1

@@ -3,8 +3,9 @@ requant epilogue.
 
 Port of uegan_tpu/ops/pallas/packed_conv_int8.py:packed_conv_int8_pallas
 (its 1x1 and SxS bodies) to a CUDA kernel for Hopper
-(csrc/packed_conv_int8.cu, on the body it shares with kernel F,
-csrc/packed_conv_body.cuh; the design note is in the header).
+(csrc/packed_conv_int8.cu, on the tensor-core body it shares with kernel
+F, csrc/packed_conv_body.cuh: TMA + wgmma s8 -> s32; the design note is in
+the header).
 ``packed_conv_int8`` launches the kernel for a CUDA tensor and raises if it
 cannot; for a CPU tensor it runs ``plain_packed_conv_int8``, the PyTorch
 version: :func:`~uegan_tpu_torch.ops.conv_int8.conv2d_int8` on the
@@ -15,6 +16,11 @@ Both zero-pad the rows and the columns.  The TPU kernel wraps its columns
 instead, so only output columns [s0, W - s1) are specified by it; callers
 overwrite the others (the reflect border strips of
 ``infer/quantized.py:_conv_q_fused``).
+
+Channel padding: the body's TMA loads need 16-byte rows, so
+``kernel_operands`` zero-pads x's and k's channels to a multiple of 16
+where Cin is not one (a copy; no main-path shape needs it).  Zero channels
+add nothing to the int32 sums.
 
 ``eligible`` and its ``_pick_th`` are the TPU kernel's shape gate, copied so
 that ``--quantized_inference int8_pallas`` routes the same convs to kernel
@@ -99,12 +105,11 @@ def _check(xp, kp, w_scale, bias, s0, act, mul) -> None:
         raise ValueError(f"packed_conv_int8: device {xp.device} is neither cpu nor cuda")
 
 
-def _kernel_weights(kp: torch.Tensor) -> torch.Tensor:
-    """OIHW int8 -> (Cout, S, S, Cin rounded up to 4) int8, zero-padded: the
-    kernel reads each tap's channels as 32-bit words."""
-    cin = kp.shape[1]
-    w = kp.permute(0, 2, 3, 1)
-    return torch.nn.functional.pad(w, (0, -cin % 4)).contiguous()
+def kernel_operands(xp: torch.Tensor, kp: torch.Tensor) -> tuple:
+    """(x, wts) as the kernel reads them: x (N, L, W, Cpad) and the weights
+    K-major, (Cout, S, S, Cpad), int8, Cpad = Cin rounded up to a multiple
+    of 16 with zero channels (16-byte TMA rows), 16-byte aligned."""
+    return _build.tma_operand(xp, 16), _build.tma_operand(kp.permute(0, 2, 3, 1), 16)
 
 
 def packed_conv_int8(xp: torch.Tensor, kp: torch.Tensor, w_scale: torch.Tensor,
@@ -121,12 +126,12 @@ def packed_conv_int8(xp: torch.Tensor, kp: torch.Tensor, w_scale: torch.Tensor,
     xp = xp.contiguous()
     if xp.device.type == "cpu":
         return plain_packed_conv_int8(xp, kp, w_scale, bias, s0, act, mul, out_scale, requant)
-    n, l, w, cin = xp.shape
+    n, l, w, _ = xp.shape
     cout = kp.shape[0]
     if max(xp.numel(), n * l * w * cout) >= _INDEX_LIMIT:
         raise ValueError(f"packed_conv_int8: shape {tuple(xp.shape)} -> {cout} channels has "
                          "2^31 elements or more")
-    wts = _kernel_weights(kp)
+    x, wts = kernel_operands(xp, kp)
     ws, b = w_scale.contiguous(), bias.contiguous()  # referenced until the launch
     if mul is not None:
         mul = mul.contiguous()
@@ -136,10 +141,11 @@ def packed_conv_int8(xp: torch.Tensor, kp: torch.Tensor, w_scale: torch.Tensor,
         out = torch.empty((n, l, w, cout), dtype=torch.int8 if requant else torch.bfloat16,
                           device=xp.device)
         err = lib.uegan_packed_conv_int8(
-            xp.data_ptr(), wts.data_ptr(), ws.data_ptr(), b.data_ptr(),
-            0 if mul is None else mul.data_ptr(), out.data_ptr(), n, l, w, cin, cout,
+            x.data_ptr(), wts.data_ptr(), ws.data_ptr(), b.data_ptr(),
+            0 if mul is None else mul.data_ptr(), out.data_ptr(), n, l, w, x.shape[-1], cout,
             kp.shape[-1], s0, _build.ACTS[act], int(requant), inv,
-            int(cin % 4 == 0 and xp.data_ptr() % 4 == 0), torch.cuda.current_stream().cuda_stream,
+            int(mul is not None and cout % 8 == 0 and mul.data_ptr() % 16 == 0),
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "packed_conv_int8")
     packed_conv_int8.launches += 1
