@@ -11,8 +11,9 @@ run with a non-zero exit on failure:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
 2. build: nvcc for sm_90a, with the seconds it took, and from ptxas's -v
-   report one line a kernel of E's and F's sources: registers, spills and
-   shared memory;
+   report (kept beside the library, so a cached build has it too) one line
+   a kernel of E's and F's sources: registers, spills and shared memory;
+   it fails where the report names no tensor-core kernel of E or F;
 3. kernels vs plain: gam_stats (A) and upsample2x (B) against their plain
    PyTorch versions run in float64 and rounded, at the shapes the 512 px
    canonical forward gives them (batch 4), in float32 and bfloat16, and at
@@ -995,12 +996,16 @@ def main() -> int:
                          f"CUDA {torch.version.cuda}; nvcc {nvcc}")
 
     t0 = time.time()
-    lib_path = _build.build(ptxas_verbose=True)
+    lib_path = _build.build()
     _build.load()
     log("2 build", f"{lib_path.name} from {[s.name for s in _build.sources()]} "
                    f"in {time.time() - t0:.1f} s")
-    for line in ptxas_summary(_build.ptxas_report, _build.load().uegan_tc_conv_smem_bytes()):
+    ptxas = ptxas_summary(_build.ptxas_report, _build.load().uegan_tc_conv_smem_bytes())
+    for line in ptxas:
         log("2 build", line)
+    for epi in ("Int8Epilogue", "FloatEpilogue"):
+        if not any(epi in line for line in ptxas):
+            raise AssertionError(f"ptxas's report names no tensor-core kernel with {epi}")
 
     worst = phase_kernels(dev)
     worst_s2d = phase_s2d_kernels(dev)

@@ -22,7 +22,10 @@
 // with no masking code.  The weights come from the wrapper K-major, (Cout,
 // S*S, Cpad), and the B tile of one K step is one TMA load of 128 output
 // channels x the same 128-byte chunk.  Both land in 128-byte-swizzled
-// shared memory, the layout wgmma reads.
+// shared memory, the layout wgmma reads.  Where the whole K is one step and
+// Cout one N tile (E at its 1x1 main-path site: 16 KB of weights), every
+// tile has the same B: the producer loads it once, into stage 0's B slot,
+// and it stays resident there, so the L2 sends the SMs activations only.
 //
 // A block is persistent (one per SM, 200 KB of shared memory) and walks the
 // tiles with a stride of the grid.  Warps 0-7 are two consumer warpgroups,
@@ -289,23 +292,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
   const int taps = g.S * g.S;
+  const int nk = taps * g.chunks;
+  const bool b_resident = nk == 1 && g.tiles_n == 1;
 
   if (warp == 8) {
     // producer: one thread keeps the ring full
     if (threadIdx.x % 32 == 0) {
       int stage = 0;
       uint32_t phase = 0;
+      bool b_loaded = false;
       for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
         const Tile tl = tile_of(t, g);
         for (int tap = 0; tap < taps; ++tap) {
           const int si = tap / g.S, sj = tap - si * g.S;
           for (int kc = 0; kc < g.chunks; ++kc) {
             mbar_wait(&empty[stage], phase ^ 1);
-            mbar_expect_tx(&full[stage], 2 * kTileBytes);
+            // a resident B arrives with the block's first stage, which every
+            // consumer waits on before its first read of B
+            const bool load_b = !(b_resident && b_loaded);
+            mbar_expect_tx(&full[stage], load_b ? 2 * kTileBytes : kTileBytes);
             tma_load_4d(a_st + stage * kTileBytes, &map_x, &full[stage], kc * g.per_chunk,
                         tl.w0 + sj - g.s0, tl.l0 + si - g.s0, tl.img);
-            tma_load_3d(b_st + stage * kTileBytes, &map_k, &full[stage], kc * g.per_chunk, tap,
-                        tl.n0);
+            if (load_b)
+              tma_load_3d(b_st + stage * kTileBytes, &map_k, &full[stage], kc * g.per_chunk, tap,
+                          tl.n0);
+            b_loaded = true;
             if (++stage == kStages) {
               stage = 0;
               phase ^= 1;
@@ -324,7 +335,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   Param* pbuf = reinterpret_cast<Param*>(epi_prm) + wg * kBN;
   uint8_t* const out = static_cast<uint8_t*>(epi.out);
   constexpr int osize = Epi::kOutBytes;
-  const int nk = taps * g.chunks;
   // 16-byte copies between the staged rows and global memory: thread tid
   // moves chunk tid % 16 of rows tid / 16 + 8 i
   const int cch = tid % 16, crow = tid / 16;
@@ -366,7 +376,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int ks = 0; ks < nk; ++ks) {
       mbar_wait(&full[stage], phase);
       const uint32_t a = smem_u32(a_st + stage * kTileBytes + wg * 64 * kRowBytes);
-      const uint32_t b = smem_u32(b_st + stage * kTileBytes);
+      const uint32_t b = smem_u32(b_st + (b_resident ? 0 : stage * kTileBytes));
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < kRowBytes / 32; ++k)

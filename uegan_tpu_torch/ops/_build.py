@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -104,28 +105,38 @@ def _run_all(cmds: list) -> list:
     return errs
 
 
-def build(ptxas_verbose: bool = False) -> Path:
+def ptxas_report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.json")
+
+
+def build() -> Path:
     """Compile the kernels if no library for the current sources exists:
-    one nvcc a source, started together, then one link.  With
-    ``ptxas_verbose`` each compile also prints ptxas's registers, shared
-    memory and spills per kernel (the code is the same), kept in
-    ``ptxas_report`` as {source name: lines}."""
+    one nvcc a source, started together, then one link.  Each compile runs
+    with ``-Xptxas -v`` (the code is the same); its registers, shared memory
+    and spills per kernel are kept beside the library as JSON and loaded
+    into ``ptxas_report`` ({source name: lines}) whether the library was
+    built now or found."""
     out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
-    verbose = ["-Xptxas", "-v"] if ptxas_verbose else []
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-        objs = [os.path.join(tmpdir, src.stem + ".o") for src in sources()]
-        errs = _run_all([[nvcc, *NVCC_FLAGS, *verbose, "-c", str(src), "-o", obj]
-                         for src, obj in zip(sources(), objs)])
-        ptxas_report.update({src.name: [ln for ln in err.splitlines()
-                                        if "ptxas" in ln or "spill" in ln]
-                             for src, err in zip(sources(), errs)})
-        tmp = os.path.join(tmpdir, "lib.so")
-        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
-        os.replace(tmp, out)  # atomic: a concurrent loader sees the whole file or none
+    report = ptxas_report_path(out)
+    if not (out.exists() and report.exists()):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            objs = [os.path.join(tmpdir, src.stem + ".o") for src in sources()]
+            errs = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o", obj]
+                             for src, obj in zip(sources(), objs)])
+            lines = {src.name: [ln for ln in err.splitlines() if "ptxas" in ln or "spill" in ln]
+                     for src, err in zip(sources(), errs)}
+            tmp_report = os.path.join(tmpdir, "ptxas.json")
+            with open(tmp_report, "w") as f:
+                json.dump(lines, f, indent=1)
+            tmp = os.path.join(tmpdir, "lib.so")
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+            # atomic, report first: a loader that sees the library sees its report
+            os.replace(tmp_report, report)
+            os.replace(tmp, out)
+    with open(report) as f:
+        ptxas_report.update(json.load(f))
     return out
 
 
