@@ -16,12 +16,22 @@ generator (conv_dim 32, weights N(0, 1/fan_in) from seed 1990), times
 - kernel E at its main-path site ga1 ((8, 256, 256, 128) int8, 1x1 -> 128,
   bf16 out), 20 calls;
 
-as the mean device ms per call from CUDA events.  The processes run one
-after another on one card, so that the trees take turns and the card's
-drift falls on both.  The script prints each process's runs, then the mean
-of every measurement per tree, with the card's name and power limit, and
-writes all of it as JSON to ``--out`` if given.  It exits non-zero where
-CUDA is unavailable or a process fails.
+as the mean ms per call from CUDA events around calls made from the host;
+and device-only, from CUDA events around replays of a CUDA graph that
+captured 50 calls (40 for C):
+
+- kernel A at the canonical forward's five GAM shapes ((8, 512 >> s,
+  512 >> s, 32 << s) bf16), summed over the five, each shape's calls going
+  round a ring of inputs of more than 100 MB, so that none finds its input
+  in the 50 MB L2;
+- kernel C at (8, 512, 512, 3) f32 -> bf16, round a ring of 4 inputs
+  (101 MB).
+
+The processes run one after another on one card, so that the trees take
+turns and the card's drift falls on both.  The script prints each
+process's runs, then the mean of every measurement per tree, with the
+card's name and power limit, and writes all of it as JSON to ``--out`` if
+given.  It exits non-zero where CUDA is unavailable or a process fails.
 """
 
 from __future__ import annotations
@@ -35,23 +45,11 @@ import sys
 SEED = 1990
 IMG = 512
 B = 8
-MEASURES = ("packed forward", "canonical forward", "int8_pallas forward", "E ga1")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from chip_smoke import cuda_ms, graph_ms, ring_calls  # noqa: E402  (the smoke run's timers)
 
-
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms, from CUDA events around ``iters`` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+MEASURES = ("packed forward", "canonical forward", "int8_pallas forward", "E ga1",
+            "A five shapes, device-only", "C, device-only")
 
 
 def worker(root: str, runs: int, device: str = "cuda") -> dict:
@@ -66,7 +64,9 @@ def worker(root: str, runs: int, device: str = "cuda") -> dict:
     from uegan_tpu_torch.models.generator import Generator
     from uegan_tpu_torch.models.initializers import fan_in_normal_state
     from uegan_tpu_torch.ops import _build
+    from uegan_tpu_torch.ops.gam_stats import gam_mean_std
     from uegan_tpu_torch.ops.packed_conv_int8 import packed_conv_int8
+    from uegan_tpu_torch.ops.s2d_fuse import s2d_convert
 
     if not _build.__file__.startswith(os.path.abspath(root) + os.sep):
         raise RuntimeError(f"imported {_build.__file__}, not the package under {root}")
@@ -85,6 +85,13 @@ def worker(root: str, runs: int, device: str = "cuda") -> dict:
     kq = torch.randint(-127, 128, (c, c, 1, 1), generator=gen, device=dev).to(torch.int8)
     ws = (torch.rand(c, generator=gen, device=dev) + 0.5) / (73.3 * 73.3 * c ** 0.5)
     bias = torch.randn(c, generator=gen, device=dev) * 0.1
+    gam_rings = []
+    for s in range(5):
+        h, ch = IMG >> s, 32 << s
+        ring = 100_000_000 // (B * h * h * ch * 2) + 1
+        gam_rings.append([torch.randn((B, h, h, ch), generator=gen, device=dev).to(torch.bfloat16)
+                          for _ in range(ring)])
+    s2d_ring = [torch.rand((B, IMG, IMG, 3), generator=gen, device=dev) * 2 - 1 for _ in range(4)]
     with torch.inference_mode():
         packed = make_packed_eval(g, pack_generator_params(g.state_dict(), g.conv_dim, device=dev))
         int8 = quantized.make_int8_eval(g, quantized.build_quant_tables(g, calib_batch=x),
@@ -95,9 +102,14 @@ def worker(root: str, runs: int, device: str = "cuda") -> dict:
                  "E ga1": (lambda: packed_conv_int8(xq, kq, ws, bias, 0), 20)}
         times = {k: [] for k in MEASURES}
         for _ in range(runs):
-            for k in MEASURES:
+            for k in MEASURES[:4]:
                 fn, iters = steps[k]
                 times[k].append(cuda_ms(fn, iters))
+            times["A five shapes, device-only"].append(sum(
+                graph_ms(ring_calls(lambda i: gam_mean_std(xs[i]), len(xs)), 50)
+                for xs in gam_rings))
+            times["C, device-only"].append(
+                graph_ms(ring_calls(lambda i: s2d_convert(s2d_ring[i]), len(s2d_ring)), 40))
     return {"build_s": build_s, "ms": times}
 
 

@@ -12,16 +12,22 @@ run with a non-zero exit on failure:
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
 2. build: nvcc for sm_90a, with the seconds it took, and from ptxas's -v
    report (kept beside the library, so a cached build has it too) one line
-   a kernel of E's and F's sources: registers, spills and shared memory;
-   it fails where the report names no tensor-core kernel of E or F;
+   a kernel of E's, F's, A's and C's (and D's) sources: registers, spills
+   and shared memory; it fails where the report names no tensor-core
+   kernel of E or F, or no kernel of A or C;
 3. kernels vs plain: gam_stats (A) and upsample2x (B) against their plain
    PyTorch versions run in float64 and rounded, at the shapes the 512 px
    canonical forward gives them (batch 4), in float32 and bfloat16, and at
-   ragged shapes.  Tolerance: float32 |d| <= 1e-5 + 1e-5 |ref|; bfloat16
-   |d| <= max(one bfloat16 ulp of the reference, 1e-5).  s2d_convert (C)
-   and residual_tail_d2s (D) against their plain versions at the 512 px
-   packed shapes (batch 4) and ragged ones, float32 and bfloat16, with NaN
-   and +-inf inputs to D: bit-equal (NaN compared as NaN).
+   ragged shapes; A also at one pixel with C = 3, 5, 12 (narrow words), 32
+   and 512 (16-byte words), at batch 1 and 512 px, and on an input one
+   element past a 16-byte boundary, each called twice for identical bits.
+   Tolerance: float32 |d| <= 1e-5 + 1e-5 |ref|; bfloat16 |d| <= max(one
+   bfloat16 ulp of the reference, 1e-5).  s2d_convert (C) and
+   residual_tail_d2s (D) against their plain versions at the 512 px packed
+   shapes (batch 4) and ragged ones, float32 and bfloat16, C in all four
+   dtype pairs with NaN and +-inf inputs and on an input 4 bytes past a
+   16-byte boundary, D with NaN and +-inf: bit-equal (NaN compared as NaN,
+   and NaN payloads too where C's dtypes are equal).
    packed_conv_int8 (E) against its plain version at the ga1 shape, the
    dec4 site (3x3, leaky, multiply, requant) and the dec5_0 site (requant)
    of the 512 px int8 forward (batch 4), a 5x5 12-channel tanh case, ragged
@@ -57,7 +63,12 @@ run with a non-zero exit on failure:
    its plain version's, its bound and, for A, B, C and F, the one PyTorch
    library call that computes the same function (E at ga1 beside
    torch._int_mm alone, and at the dec4 and dec5_0 sites beside the int8
-   mode's unfused chain), from CUDA events;
+   mode's unfused chain), each two ways: eager (CUDA events around calls
+   made from the host) and device-only (CUDA events around replays of a
+   CUDA graph that captured the calls; the profiler's device time where
+   capture fails).  The share of the bound and the JSON line's times are
+   the device-only ones.  A's calls (its five canonical shapes), C's and
+   D's go round rings of inputs of over 100 MB, so they find them cold;
 7. profile: the canonical, packed and int8_pallas forwards at 512 px, batch
    8, bfloat16, under torch.profiler: wall and device-busy time per forward,
    the device's idle share, and device time in buckets of kernel names.
@@ -86,9 +97,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 GAM_SHAPES = [(IMG >> s, 32 << s) for s in range(5)]  # (H = W, C) at ga1 .. ga5
 UP_SHAPES = [(IMG >> s, 32 << s) for s in range(4, 0, -1)]  # inputs of upsample1 .. 4
 RAGGED = [(2, 12, 10, 3), (1, 1, 1, 5)]
+# more A cases: one pixel at C = 3, 5, 12 (narrow words) and 32, 512 (16-byte
+# words), and a batch of one at 512 px, whose plan cuts each image finer
+GAM_EXTRA = [(2, 1, 1, c) for c in (3, 5, 12, 32, 512)] + [(1, IMG, IMG, 32)]
 # original (N, H, W, C) images for kernels C and D: the 512 px batch-4 input
-# and ragged ones; D takes the packed shapes (N, H/2, W/2, 4C)
-S2D_SHAPES = [(4, IMG, IMG, 3), (2, 12, 10, 3), (1, 2, 2, 5), (1, 4, 6, 1)]
+# and ragged ones (narrow words); D takes the packed shapes (N, H/2, W/2, 4C)
+S2D_SHAPES = [(4, IMG, IMG, 3), (2, 12, 10, 3), (1, 2, 2, 5), (1, 4, 6, 1), (1, 4, 6, 3)]
 KERNELS = ("gam_stats", "upsample2x", "s2d_convert", "residual_tail_d2s", "packed_conv_int8",
            "packed_conv")
 INT8_PEAK_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
@@ -128,7 +142,7 @@ F_CASES = [
 BUCKETS = [
     ("packed_conv_int8 kernel (E)", ("Int8Epilogue",)),
     ("packed_conv kernel (F)", ("FloatEpilogue", "conv_f32")),
-    ("gam_stats kernel (A)", ("partial_sums", "finish<")),
+    ("gam_stats kernel (A)", ("gam_stats_kernel",)),
     ("upsample2x kernel (B)", ("upsample2x_ac",)),
     ("s2d_convert kernel (C)", ("s2d_convert_kernel",)),
     ("residual_tail_d2s kernel (D)", ("residual_tail_d2s_kernel",)),
@@ -154,28 +168,62 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+PTXAS_SOURCES = ("packed_conv.cu", "packed_conv_int8.cu", "gam_stats.cu", "s2d_fuse.cu")
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable name for a kernel's mangled name: E's and F's tensor-core
+    instantiations by epilogue, the others by template arguments."""
+    e = re.search(r"(Int8Epilogue|FloatEpilogue)I((?:L[ib]\d+E)+)E", mangled)
+    if e:
+        return f"conv_kernel<{e.group(1)}<{','.join(re.findall(r'\d+', e.group(2)))}>>"
+    if "conv_f32" in mangled:
+        return "conv_f32"
+    found = None  # the last length-prefixed name that ends in _kernel<...>
+    for m in re.finditer(r"(?=(\d+))", mangled):  # each digit run and its tails
+        at = m.start() + len(m.group(1))
+        base = mangled[at:at + int(m.group(1))]
+        if base.endswith("_kernel") and mangled[at + len(base):].startswith("I"):
+            found = (base, at + len(base) + 1)
+    if found is None:
+        return mangled[:60]
+    base, rest, args = found[0], mangled[found[1]:], []
+    while rest:
+        t = re.match(r"f|13__nv_bfloat16|Li(\d+)E|S\w*?_", rest)
+        if not t:
+            break
+        tok = t.group(0)
+        args.append(args[-1] if tok.startswith("S") and args else
+                    {"f": "f32", "13__nv_bfloat16": "bf16"}.get(tok, t.group(1)))
+        rest = rest[t.end():]
+    return f"{base}<{','.join(args)}>"
+
+
 def ptxas_summary(report: dict, tc_smem: int) -> list:
-    """One line a kernel of E's and F's sources from ptxas's -v report:
-    registers, spills and shared memory (the tensor-core body's is dynamic)."""
+    """One line a kernel of E's, F's, A's and C's sources (and D's, which
+    shares C's) from ptxas's -v report: registers, spills and static shared
+    memory (the tensor-core body's and C's are dynamic)."""
     out = []
-    for src in ("packed_conv.cu", "packed_conv_int8.cu"):
+    for src in PTXAS_SOURCES:
         name, spill = None, "?"
         for ln in report.get(src, []):
             m = re.search(r"Compiling entry function '(\w+)'", ln)
             if m:
-                e = re.search(r"(Int8Epilogue|FloatEpilogue)I((?:L[ib]\d+E)+)E", m.group(1))
-                if e:
-                    args = ",".join(re.findall(r"\d+", e.group(2)))
-                    name = f"conv_kernel<{e.group(1)}<{args}>>"
-                else:
-                    name = "conv_f32" if "conv_f32" in m.group(1) else m.group(1)[:60]
+                name = kernel_name(m.group(1))
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
             if m:
                 spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
-            m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$", ln)
+            m = re.search(r"Used (\d+) registers", ln)
             if m and name:
-                smem = (f"{m.group(2)} B static shared memory" if m.group(2)
-                        else f"{tc_smem} B dynamic shared memory")
+                static = re.search(r"(\d+) bytes smem", ln)
+                if static:
+                    smem = f"{static.group(1)} B static shared memory"
+                elif "Epilogue" in name:
+                    smem = f"{tc_smem} B dynamic shared memory"
+                elif name.startswith("s2d_convert"):
+                    smem = "dynamic shared memory from its plan"
+                else:
+                    smem = "no shared memory"
                 out.append(f"{src} {name}: {m.group(1)} registers, {spill}, {smem}")
                 name, spill = None, "?"
     return out
@@ -234,6 +282,101 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Device-only ms per call of fn(): ``iters`` calls captured in one CUDA
+    graph (after warm-up on the capture stream), the graph replayed
+    ``replays`` times between CUDA events, so no host work sits between the
+    calls' kernels."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (replays * iters)
+    del graph
+    return ms
+
+
+def profiler_ms(fn, iters: int) -> float:
+    """Device ms per call of fn(): the summed device time of the kernels its
+    ``iters`` calls launch, under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not events:
+        raise AssertionError("torch.profiler recorded no device kernel")
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+
+
+DEVICE_METHODS = set()  # how the device-only times were taken: "graph", "profiler"
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device-only ms per call: CUDA-graph replay, or where fn() cannot be
+    captured, the profiler's device time of its own kernels."""
+    import torch
+
+    try:
+        ms = graph_ms(fn, iters)
+        DEVICE_METHODS.add("graph")
+    except Exception as e:  # capture refused: no graph, take the profiler's view
+        torch.cuda.synchronize()
+        log("6 timing", f"graph capture failed ({type(e).__name__}: {str(e)[:120]}); "
+                        f"profiler device time instead")
+        ms = profiler_ms(fn, iters)
+        DEVICE_METHODS.add("profiler")
+    return ms
+
+
+def turns(fns: dict, iters: int) -> dict:
+    """Each function's ms per call two ways, each the mean of two runs in
+    the order of ``fns`` and back: ``eager`` from CUDA events around
+    back-to-back calls from the host, ``device`` device-only (device_ms)."""
+    order = list(fns) + list(fns)[::-1]
+    out = {}
+    for how, timer in (("eager", cuda_ms), ("device", device_ms)):
+        t = {k: [] for k in fns}
+        for k in order:
+            t[k].append(timer(fns[k], iters))
+        out[how] = {k: sum(v) / len(v) for k, v in t.items()}
+    return out
+
+
+def ring_calls(fn, ring: int):
+    """A function that calls fn(i) with i going round 0 .. ring - 1, one step
+    a call, so that each call takes the next of ``ring`` input sets."""
+    state = {"i": 0}
+
+    def call():
+        state["i"] = (state["i"] + 1) % ring
+        return fn(state["i"])
+    return call
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route both generator forwards through the kernels' plain PyTorch versions."""
@@ -255,6 +398,16 @@ def plain_versions():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def library_s2d(x):
+    """C's function in one PyTorch call: the permuted view cast into
+    contiguous bfloat16 memory (one copy kernel), viewed packed."""
+    import torch
+
+    n, h, w, c = x.shape
+    return x.view(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5).to(
+        torch.bfloat16, memory_format=torch.contiguous_format).view(n, h // 2, w // 2, 4 * c)
 
 
 def seeded_generator(dtype, device):
@@ -318,14 +471,25 @@ def phase_kernels(dev) -> dict:
     cases = [("gam_stats", (4, h, h, c)) for h, c in GAM_SHAPES]
     cases += [("upsample2x", (4, h, h, c)) for h, c in UP_SHAPES]
     cases += [(k, s) for s in RAGGED for k in ("gam_stats", "upsample2x")]
+    cases += [("gam_stats", s) for s in GAM_EXTRA]
+    cases += [("gam_stats misaligned", (4, 64, 64, 32))]
     run = {"gam_stats": (lambda x: torch.cat(gam_stats.gam_mean_std(x), -1),
                          lambda x: torch.cat(gam_stats.plain(x), -1)),
            "upsample2x": (resize2x.upsample2x, resize2x.plain)}
-    for name, shape in cases:
-        kern, plain = run[name]
+    run["gam_stats misaligned"] = run["gam_stats"]
+    for what, shape in cases:
+        name = what.split()[0]
+        kern, plain = run[what]
         for dtype in (torch.float32, torch.bfloat16):
             x = (torch.randn(shape, generator=gen, device=dev) * 2 + 1).to(dtype)
+            if what.endswith("misaligned"):  # contiguous, one element past 16 bytes
+                x = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:].view(shape).copy_(x)
             got = kern(x)
+            if name == "gam_stats":
+                again = kern(x)
+                torch.cuda.synchronize()
+                if not torch.equal(got.view(torch.uint8), again.view(torch.uint8)):
+                    raise AssertionError(f"gam_stats {shape} {dtype}: two calls differ in bits")
             want = plain(x.double()).to(dtype)
             plain32 = plain(x)
             torch.cuda.synchronize()
@@ -334,11 +498,12 @@ def phase_kernels(dev) -> dict:
             err, rel, ok = compare(got, want, dtype)
             perr = compare(plain32, want, dtype)[0]
             tag = "f32" if dtype == torch.float32 else "bf16"
-            log("3 kernels", f"{name} {shape} {tag}: max abs {err:.3e} max rel {rel:.3e} "
+            same = ", two calls bit-equal" if name == "gam_stats" else ""
+            log("3 kernels", f"{what} {shape} {tag}: max abs {err:.3e} max rel {rel:.3e} "
                              f"{'ok' if ok else 'OUT OF TOLERANCE'} (plain in {tag}: "
-                             f"max abs {perr:.3e})")
+                             f"max abs {perr:.3e}){same}")
             if not ok:
-                raise AssertionError(f"{name} {shape} {tag} disagrees with its plain version")
+                raise AssertionError(f"{what} {shape} {tag} disagrees with its plain version")
             i = 0 if dtype == torch.float32 else 1
             worst[name][i] = max(worst[name][i], err)
     return worst
@@ -357,9 +522,13 @@ def phase_s2d_kernels(dev) -> dict:
     tag = {f32: "f32", bf16: "bf16"}
     worst = {"s2d_convert": 0.0, "residual_tail_d2s": 0.0}
 
-    def check(name, shape, what, got, want):
+    def check(name, shape, what, got, want, payloads=False):
+        """Bit-equal; with ``payloads``, NaN payloads included."""
         torch.cuda.synchronize()
         ok = bits_equal(got, want)
+        if payloads:
+            as_int = torch.int16 if got.dtype == bf16 else torch.int32
+            ok = ok and torch.equal(got.view(as_int), want.view(as_int))
         d = (got.float() - want.float()).abs().nan_to_num(0.0)
         err = float(d.max()) if d.numel() else 0.0
         worst[name] = max(worst[name], err)
@@ -368,13 +537,39 @@ def phase_s2d_kernels(dev) -> dict:
         if not ok:
             raise AssertionError(f"{name} {shape} {what} differs from its plain version")
 
+    def with_nans(x):
+        """x with NaNs of several payloads (and +-inf) at its first elements."""
+        as_int = torch.int16 if x.dtype == bf16 else torch.int32
+        bits = ([0x7FC1, 0xFF81, 0x7F81, 0x7F80, 0xFF80] if x.dtype == bf16 else
+                [0x7FC00001, 0xFF800005, 0x7F800123, 0x7F800000, 0xFF800000])
+        bits = [b - (b >> (x.element_size() * 8 - 1) << x.element_size() * 8) for b in bits]
+        x = x.clone()
+        flat = x.view(-1).view(as_int)
+        k = min(len(bits), flat.numel())
+        flat[:k] = torch.tensor(bits[:k], dtype=as_int, device=dev)
+        return x
+
     for n, h, w, c in S2D_SHAPES:
         x = torch.rand((n, h, w, c), generator=gen, device=dev) * 2 - 1
         for tin in (f32, bf16):
             for tout in (f32, bf16):
-                xi = x.to(tin)
-                check("s2d_convert", (n, h, w, c), f"{tag[tin]} -> {tag[tout]}",
-                      s2d_fuse.s2d_convert(xi, tout), s2d_fuse.plain_s2d_convert(xi, tout))
+                xi = with_nans(x.to(tin))
+                check("s2d_convert", (n, h, w, c), f"{tag[tin]} -> {tag[tout]} with NaN/inf",
+                      s2d_fuse.s2d_convert(xi, tout), s2d_fuse.plain_s2d_convert(xi, tout),
+                      payloads=tin == tout)
+    # a contiguous input 4 bytes past a 16-byte boundary: C's narrow words
+    shape = S2D_SHAPES[0]
+    for tin in (f32, bf16):
+        x = (torch.rand(shape, generator=gen, device=dev) * 2 - 1).to(tin)
+        step = 4 // x.element_size()
+        xm = torch.empty(x.numel() + step, dtype=tin, device=dev)[step:].view(shape).copy_(x)
+        if xm.data_ptr() % 16 != 4 or not xm.is_contiguous():
+            raise AssertionError(f"the misaligned input sits at {xm.data_ptr() % 16} mod 16")
+        for tout in (f32, bf16):
+            check("s2d_convert", shape, f"{tag[tin]} -> {tag[tout]}, input 4 B misaligned",
+                  s2d_fuse.s2d_convert(xm, tout), s2d_fuse.plain_s2d_convert(xm, tout),
+                  payloads=tin == tout)
+    for n, h, w, c in S2D_SHAPES:
         packed_shape = (n, h // 2, w // 2, 4 * c)
         for dt in (f32, bf16):
             res = (torch.rand(packed_shape, generator=gen, device=dev) * 4 - 2).to(dt)
@@ -712,48 +907,63 @@ def phase_timing(dev, card: str) -> dict:
         log("6 timing", f"{k} forward {IMG}px B={b} with kernels: {fwd[k]['kernels']:.3f} "
                         f"ms/forward, {b * 1000 / fwd[k]['kernels']:.1f} img/s (runs {v}) [{card}]")
 
-    def turns(kern, plain, lib, iters):
-        """Kernel, plain, library call: CUDA-event ms per call, each the mean
-        of two runs in the order kernel, plain, lib, lib, plain, kernel."""
-        fns = {"kernel": kern, "plain": plain, "library": lib}
-        t = {k: [] for k in fns}
-        for k in ("kernel", "plain", "library", "library", "plain", "kernel"):
-            if fns[k] is not None:
-                t[k].append(cuda_ms(fns[k], iters))
-        return {k: (sum(v) / len(v) if v else None) for k, v in t.items()}
+    def three(kern, plain, lib, iters):
+        """Kernel, plain, library call (where there is one), in turns."""
+        fns = {"kernel": kern, "plain": plain}
+        if lib is not None:
+            fns["library"] = lib
+        t = turns(fns, iters)
+        for how in ("eager", "device"):
+            t[how].setdefault("library", None)
+        return t
 
-    per = {name: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bytes": 0, "ops": 0,
-                  "peak": None} for name in KERNELS}
+    per = {name: {how: {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+                  for how in ("eager", "device")} | {"bytes": 0, "ops": 0, "peak": None}
+           for name in KERNELS}
 
     def add(name, t, nbytes, ops=0, peak=None):
-        for k in ("kernel", "plain", "library"):
-            if t[k] is None:
-                per[name][k] = None
-            else:
-                per[name][k] += t[k]
+        for how in ("eager", "device"):
+            for k in ("kernel", "plain", "library"):
+                if t[how][k] is None or per[name][how][k] is None:
+                    per[name][how][k] = None
+                else:
+                    per[name][how][k] += t[how][k]
         per[name]["bytes"] += nbytes
         per[name]["ops"] += ops
         per[name]["peak"] = peak
 
+    def us(t, k):
+        e, d = t["eager"][k], t["device"][k]
+        return f"{e * 1e3:.1f} us eager / {d * 1e3:.2f} us device-only"
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     with torch.inference_mode():
+        # A: the five canonical shapes; each takes the next of a ring of input
+        # sets that together exceed 100 MB, so that no call finds its input in
+        # the 50 MB L2
         for h, c in GAM_SHAPES:
-            xa = torch.randn((b, h, h, c), generator=gen, device=dev).to(torch.bfloat16)
-            t = turns(lambda: gam_stats.gam_mean_std(xa), lambda: gam_stats.plain(xa),
-                      lambda: torch.var_mean(xa, dim=(1, 2), correction=1), 50)
-            add("gam_stats", t, xa.numel() * 2 + 2 * b * c * 2)
-            log("6 timing", f"gam_stats ({b},{h},{h},{c}) bf16: kernel {t['kernel'] * 1e3:.1f} us, "
-                            f"plain {t['plain'] * 1e3:.1f} us, torch.var_mean "
-                            f"{t['library'] * 1e3:.1f} us per call [{card}]")
+            nbytes = b * h * h * c * 2
+            ring = 100_000_000 // nbytes + 1
+            xa = [torch.randn((b, h, h, c), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(ring)]
+            t = three(ring_calls(lambda i: gam_stats.gam_mean_std(xa[i]), ring),
+                      ring_calls(lambda i: gam_stats.plain(xa[i]), ring),
+                      ring_calls(lambda i: torch.var_mean(xa[i], dim=(1, 2), correction=1), ring),
+                      50)
+            add("gam_stats", t, nbytes + 2 * b * c * 2)
+            log("6 timing", f"gam_stats ({b},{h},{h},{c}) bf16, ring of {ring} ("
+                            f"{ring * nbytes / 1e6:.0f} MB): kernel {us(t, 'kernel')}, plain "
+                            f"{us(t, 'plain')}, torch.var_mean {us(t, 'library')} per call "
+                            f"[{card}]")
+            del xa
         for h, c in UP_SHAPES:
             xb = torch.randn((b, h, h, c), generator=gen, device=dev).to(torch.bfloat16)
             lib = lambda: F.interpolate(xb.permute(0, 3, 1, 2), scale_factor=2, mode="bilinear",
                                         align_corners=True)
-            t = turns(lambda: resize2x.upsample2x(xb), lambda: resize2x.plain(xb), lib, 50)
+            t = three(lambda: resize2x.upsample2x(xb), lambda: resize2x.plain(xb), lib, 50)
             add("upsample2x", t, xb.numel() * 2 * 5)
-            log("6 timing", f"upsample2x ({b},{h},{h},{c}) bf16: kernel {t['kernel'] * 1e3:.1f} "
-                            f"us, plain {t['plain'] * 1e3:.1f} us, F.interpolate "
-                            f"{t['library'] * 1e3:.1f} us per call [{card}]")
+            log("6 timing", f"upsample2x ({b},{h},{h},{c}) bf16: kernel {us(t, 'kernel')}, plain "
+                            f"{us(t, 'plain')}, F.interpolate {us(t, 'library')} per call [{card}]")
         # C and D: their inputs fit in the 50 MB L2, so each timed call takes
         # the next of 4 input sets (151 MB together) and finds its inputs cold
         ring = 4
@@ -762,49 +972,38 @@ def phase_timing(dev, card: str) -> dict:
         rs = [torch.rand(pshape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(ring)]
         ps = [torch.rand(pshape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(ring)]
 
-        def library_s2d(x):
-            """C's function in one PyTorch call: the permuted view cast into
-            contiguous bfloat16 memory (one copy kernel), viewed packed."""
-            n, h, w, c = x.shape
-            return x.view(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5).to(
-                torch.bfloat16, memory_format=torch.contiguous_format).view(n, h // 2, w // 2, 4 * c)
-
         if not bits_equal(library_s2d(xs[0]), s2d_fuse.plain_s2d_convert(xs[0])):
             raise AssertionError("C's library call differs from its plain version")
-
-        def cycling(fn):
-            state = {"i": 0}
-
-            def call():
-                state["i"] = (state["i"] + 1) % ring
-                return fn(state["i"])
-            return call
-
-        t = turns(cycling(lambda i: s2d_fuse.s2d_convert(xs[i])),
-                  cycling(lambda i: s2d_fuse.plain_s2d_convert(xs[i])),
-                  cycling(lambda i: library_s2d(xs[i])), 40)
+        t = three(ring_calls(lambda i: s2d_fuse.s2d_convert(xs[i]), ring),
+                  ring_calls(lambda i: s2d_fuse.plain_s2d_convert(xs[i]), ring),
+                  ring_calls(lambda i: library_s2d(xs[i]), ring), 40)
         add("s2d_convert", t, xs[0].numel() * 4 + xs[0].numel() * 2)
-        log("6 timing", f"s2d_convert ({b},{IMG},{IMG},3) f32 -> bf16: kernel "
-                        f"{t['kernel'] * 1e3:.1f} us, plain {t['plain'] * 1e3:.1f} us, one "
-                        f"permuted .to() {t['library'] * 1e3:.1f} us per call [{card}]")
-        t = turns(cycling(lambda i: s2d_fuse.residual_tail_d2s(rs[i], ps[i])),
-                  cycling(lambda i: s2d_fuse.plain_residual_tail_d2s(rs[i], ps[i])), None, 40)
+        log("6 timing", f"s2d_convert ({b},{IMG},{IMG},3) f32 -> bf16: kernel {us(t, 'kernel')}, "
+                        f"plain {us(t, 'plain')}, one permuted .to() {us(t, 'library')} per call "
+                        f"[{card}]")
+        t = three(ring_calls(lambda i: s2d_fuse.residual_tail_d2s(rs[i], ps[i]), ring),
+                  ring_calls(lambda i: s2d_fuse.plain_residual_tail_d2s(rs[i], ps[i]), ring),
+                  None, 40)
         add("residual_tail_d2s", t, rs[0].numel() * 2 * 3)
-        log("6 timing", f"residual_tail_d2s {pshape} bf16: kernel {t['kernel'] * 1e3:.1f} us, "
-                        f"plain {t['plain'] * 1e3:.1f} us per call [{card}]")
+        log("6 timing", f"residual_tail_d2s {pshape} bf16: kernel {us(t, 'kernel')}, plain "
+                        f"{us(t, 'plain')} per call [{card}]")
         timing_int8(dev, card, gen, b, add)
+    methods = " and ".join(sorted(DEVICE_METHODS))
     for name in KERNELS:
         p = per[name]
         t_bytes = p["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = p["ops"] / p["peak"] * 1e3 if p["ops"] else 0.0
         p["bound"], p["bound_by"] = max((t_bytes, "bytes"), (t_ops, "operations"))
-        lib = "none" if p["library"] is None else f"{p['library']:.4f}"
-        log("6 timing", f"{name} per {'forward' if name != 'packed_conv' else 'dec4-shape call'}: "
-                        f"kernel {p['kernel']:.4f} ms, plain {p['plain']:.4f} ms, library {lib} "
-                        f"ms, bound {p['bound']:.4f} ms by {p['bound_by']} "
+        dv, ev = p["device"], p["eager"]
+        lib = "none" if dv["library"] is None else (
+            f"{dv['library']:.4f} (eager {ev['library']:.4f})")
+        log("6 timing", f"{name} per {'forward' if name != 'packed_conv' else 'dec4-shape call'}, "
+                        f"device-only ({methods}): kernel {dv['kernel']:.4f} ms (eager "
+                        f"{ev['kernel']:.4f}), plain {dv['plain']:.4f} (eager {ev['plain']:.4f}), "
+                        f"library {lib} ms, bound {p['bound']:.4f} ms by {p['bound_by']} "
                         f"({p['bytes'] / 1e6:.1f} MB at 3.35 TB/s: {t_bytes:.4f} ms; "
                         f"{p['ops'] / 1e9:.1f} G operations: {t_ops:.4f} ms), "
-                        f"{p['bound'] / p['kernel']:.0%} of the bound [{card}]")
+                        f"{p['bound'] / dv['kernel']:.0%} of the bound [{card}]")
     return {"forward": fwd, "per_kernel": per}
 
 
@@ -822,11 +1021,8 @@ def timing_int8(dev, card: str, gen, b: int, add) -> None:
     from uegan_tpu_torch.ops import packed_conv_int8 as emod
     from uegan_tpu_torch.ops.conv_int8 import gemm_weight
 
-    def turns(fns: dict, iters: int) -> dict:
-        t = {k: [] for k in fns}
-        for k in list(fns) + list(fns)[::-1]:
-            t[k].append(cuda_ms(fns[k], iters))
-        return {k: sum(v) / len(v) for k, v in t.items()}
+    def ms(t, k):
+        return f"{t['eager'][k]:.4f} ms eager / {t['device'][k]:.4f} ms device-only"
 
     # ga1: (B, 256, 256, 128) s8 (x) (128, 128) -> bf16
     shape, c4 = (b, HP, HP, 4 * CD), 4 * CD
@@ -836,11 +1032,11 @@ def timing_int8(dev, card: str, gen, b: int, add) -> None:
                "plain": lambda: emod.plain_packed_conv_int8(xq, kq, ws, bias, 0),
                "int_mm": lambda: torch._int_mm(cols, wt)}, 20)
     m = xq.numel() // c4
-    add("packed_conv_int8", {**t, "library": None}, xq.numel() + m * c4 * 2 + kq.numel(),
-        2 * m * c4 * c4, INT8_PEAK_OPS)
-    log("6 timing", f"packed_conv_int8 ga1 {shape} -> {c4} bf16: kernel {t['kernel'] * 1e3:.1f} "
-                    f"us, plain (the int8 mode's conv2d_int8 + dequant) {t['plain'] * 1e3:.1f} "
-                    f"us, torch._int_mm alone {t['int_mm'] * 1e3:.1f} us per call [{card}]")
+    add("packed_conv_int8", {how: {**t[how], "library": None} for how in t},
+        xq.numel() + m * c4 * 2 + kq.numel(), 2 * m * c4 * c4, INT8_PEAK_OPS)
+    log("6 timing", f"packed_conv_int8 ga1 {shape} -> {c4} bf16: kernel {ms(t, 'kernel')}, "
+                    f"plain (the int8 mode's conv2d_int8 + dequant) {ms(t, 'plain')}, "
+                    f"torch._int_mm alone {ms(t, 'int_mm')} per call [{card}]")
 
     # the dec4 site: (B, 256, 256, 256) s8 (x) 3x3 -> 128, leaky, * x1p, requant
     shape, c8 = (b, HP, HP, 8 * CD), 8 * CD
@@ -860,10 +1056,10 @@ def timing_int8(dev, card: str, gen, b: int, add) -> None:
     bound = max((xq.numel() + 2 * m * c4 + m * c4) / HBM_BYTES_PER_S,
                 2 * m * c8 * 9 * c4 / INT8_PEAK_OPS) * 1e3
     log("6 timing", f"packed_conv_int8 dec4 site {shape} -> {c4} s8 (leaky, mul, requant): "
-                    f"kernel {t['kernel']:.3f} ms, kernel + reflect strips (_conv_q_fused) "
-                    f"{t['kernel + strips']:.3f} ms, the int8 mode's unfused chain "
-                    f"{t['unfused chain']:.3f} ms per call; bound {bound:.4f} ms, "
-                    f"{bound / t['kernel']:.0%} of it [{card}]")
+                    f"kernel {ms(t, 'kernel')}, kernel + reflect strips (_conv_q_fused) "
+                    f"{ms(t, 'kernel + strips')}, the int8 mode's unfused chain "
+                    f"{ms(t, 'unfused chain')} per call; bound {bound:.4f} ms, "
+                    f"{bound / t['device']['kernel']:.0%} of it device-only [{card}]")
 
     # the dec5_0 site: (B, 256, 256, 128) s8 (x) 3x3 -> 128, requant
     xq, kq, ws, bias, _ = e_inputs((b, HP, HP, c4), c4, 3, False, gen, dev)
@@ -879,9 +1075,9 @@ def timing_int8(dev, card: str, gen, b: int, add) -> None:
     bound5 = max((xq.numel() + m5 * c4 + kq.numel()) / HBM_BYTES_PER_S,
                  2 * m5 * c4 * 9 * c4 / INT8_PEAK_OPS) * 1e3
     log("6 timing", f"packed_conv_int8 dec5_0 site {(b, HP, HP, c4)} -> {c4} s8 (requant): "
-                    f"kernel {t5['kernel']:.3f} ms, the int8 mode's unfused chain "
-                    f"{t5['unfused chain']:.3f} ms per call; bound {bound5:.4f} ms, "
-                    f"{bound5 / t5['kernel']:.0%} of it [{card}]")
+                    f"kernel {ms(t5, 'kernel')}, the int8 mode's unfused chain "
+                    f"{ms(t5, 'unfused chain')} per call; bound {bound5:.4f} ms, "
+                    f"{bound5 / t5['device']['kernel']:.0%} of it device-only [{card}]")
 
     # F at the dec4 shape, bf16, act none: F.conv2d with bias computes the same
     x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -892,9 +1088,10 @@ def timing_int8(dev, card: str, gen, b: int, add) -> None:
                "library": lambda: F.conv2d(x.permute(0, 3, 1, 2), k, bf, padding=1)}, 5)
     add("packed_conv", t, x.numel() * 2 + m * c4 * 2 + k.numel() * 2, 2 * m * c8 * 9 * c4,
         BF16_PEAK_FLOPS)
-    log("6 timing", f"packed_conv dec4 shape {shape} -> {c4} bf16: kernel {t['kernel']:.3f} ms, "
-                    f"plain {t['plain']:.3f} ms, F.conv2d {t['library']:.3f} ms per call, "
-                    f"kernel / F.conv2d {t['kernel'] / t['library']:.2f} [{card}]")
+    log("6 timing", f"packed_conv dec4 shape {shape} -> {c4} bf16: kernel {ms(t, 'kernel')}, "
+                    f"plain {ms(t, 'plain')}, F.conv2d {ms(t, 'library')} per call, kernel / "
+                    f"F.conv2d {t['device']['kernel'] / t['device']['library']:.2f} device-only, "
+                    f"{t['eager']['kernel'] / t['eager']['library']:.2f} eager [{card}]")
 
 
 def bucket_of(name: str) -> str:
@@ -1003,9 +1200,9 @@ def main() -> int:
     ptxas = ptxas_summary(_build.ptxas_report, _build.load().uegan_tc_conv_smem_bytes())
     for line in ptxas:
         log("2 build", line)
-    for epi in ("Int8Epilogue", "FloatEpilogue"):
-        if not any(epi in line for line in ptxas):
-            raise AssertionError(f"ptxas's report names no tensor-core kernel with {epi}")
+    for key in ("Int8Epilogue", "FloatEpilogue", "gam_stats_kernel", "s2d_convert_kernel"):
+        if not any(key in line for line in ptxas):
+            raise AssertionError(f"ptxas's report names no {key} kernel")
 
     worst = phase_kernels(dev)
     worst_s2d = phase_s2d_kernels(dev)
@@ -1038,8 +1235,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
             "launches": sum(run[name] for run in launches.values()),
             "launches_by_path": {path: run[name] for path, run in launches.items()},
-            "max_abs_err": err[name], "ms": p["kernel"], "plain_ms": p["plain"],
-            "bound_ms": p["bound"], "bound_by": p["bound_by"], "library_ms": p["library"],
+            "max_abs_err": err[name], "ms": p["device"]["kernel"],
+            "plain_ms": p["device"]["plain"], "bound_ms": p["bound"], "bound_by": p["bound_by"],
+            "library_ms": p["device"]["library"], "eager_ms": p["eager"]["kernel"],
+            "eager_plain_ms": p["eager"]["plain"], "eager_library_ms": p["eager"]["library"],
+            "device_time": sorted(DEVICE_METHODS),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

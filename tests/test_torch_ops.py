@@ -23,6 +23,7 @@ from uegan_tpu.ops.resize import upsample2x_align_corners as jax_upsample2x
 from uegan_tpu_torch.convert.from_flax import generator_state_dict
 from uegan_tpu_torch.models.generator import Generator
 from uegan_tpu_torch.models.initializers import fan_in_normal_state
+from uegan_tpu_torch.ops import gam_stats
 from uegan_tpu_torch.ops.gam_stats import gam_mean_std
 from uegan_tpu_torch.ops.resize2x import upsample2x
 
@@ -48,6 +49,113 @@ def test_gam_mean_std_matches_jax(shape):
                 gam_mean_std_pallas(jnp.asarray(x), interpret=True)):
         np.testing.assert_allclose(mean.numpy(), np.asarray(ref[0]), rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(std.numpy(), np.asarray(ref[1]), rtol=1e-5, atol=1e-6)
+
+
+def _plan_pixels(p, hw: int):
+    """Per split of ``split_plan``'s plan, the pixels the kernel's loop
+    reads: thread row r steps from p0 + r by rows * UNROLL and loads UNROLL
+    pixels rows apart, up to the split's end.  (split, pixel) pairs."""
+    split = np.arange(p.splits)[:, None, None, None]
+    r = np.arange(p.rows)[None, :, None, None]
+    step = np.arange(-(-p.chunk // (p.rows * gam_stats.UNROLL)))[None, None, :, None]
+    u = np.arange(gam_stats.UNROLL)[None, None, None, :]
+    p0 = split * p.chunk
+    p1 = np.minimum(p0 + p.chunk, hw)
+    at = p0 + r + step * p.rows * gam_stats.UNROLL
+    q = at + u * p.rows
+    keep = np.broadcast_to((at < p1) & (q < p1), q.shape)
+    return np.broadcast_to(split, q.shape)[keep], q[keep]
+
+
+def _emulate_gam(x: np.ndarray, p) -> tuple:
+    """Kernel A as its blocks combine, in float64: each thread's sums over
+    its pixels, the block's column sums in lanes, each split's partials
+    written, then the last block's sums over splits in lanes; mean and the
+    unbiased std as the kernel finishes them."""
+    n, h, w, c = x.shape
+    hw = h * w
+    xs = x.reshape(n, hw, c).astype(np.float64)
+    splits, pix = _plan_pixels(p, hw)
+    width = p.groups * p.vec
+    part = np.zeros((n, p.splits, 2, c))
+
+    def column_sums(m, cols):  # m (rows, cols, 2), lanes as in the kernel
+        lanes = max(1, min(m.shape[0], gam_stats.THREADS // cols))
+        return sum(m[lane::lanes].sum(0) for lane in range(lanes))
+
+    for s in range(p.splits):
+        mine = pix[splits == s]
+        owner = (mine - s * p.chunk) % p.rows  # the thread row that reads each pixel
+        for t in range(p.tiles):
+            c0, c1 = t * width, min((t + 1) * width, c)
+            v = np.zeros((n, len(mine), width))
+            v[:, :, :c1 - c0] = xs[:, mine, c0:c1]
+            per_row = np.stack([np.stack([v[:, owner == r].sum(1), (v[:, owner == r] ** 2).sum(1)],
+                                         -1) for r in range(p.rows)], 1)  # (n, rows, width, 2)
+            for i in range(n):
+                part[i, s, :, c0:c1] = column_sums(per_row[i], width)[:c1 - c0].T
+    mean = np.zeros((n, c))
+    std = np.zeros((n, c))
+    for t in range(p.tiles):
+        c0, c1 = t * width, min((t + 1) * width, c)
+        for i in range(n):
+            s1, s2 = column_sums(part[i, :, :, c0:c1].transpose(0, 2, 1), c1 - c0).T
+            m = s1 / hw
+            var = (s2 - hw * m * m) / max(hw - 1, 1)
+            mean[i, c0:c1], std[i, c0:c1] = m, np.sqrt(np.maximum(var, 0) + 1e-5)
+    return mean, std
+
+
+# the five GAM sites of the 512 px canonical forward at B=8, a batch of one
+# at 512 px, and ragged shapes
+GAM_PLAN_SHAPES = [(8, 512 >> s, 512 >> s, 32 << s) for s in range(5)]
+GAM_PLAN_SHAPES += [(1, 512, 512, 32), (2, 12, 10, 3), (1, 1, 1, 5)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", GAM_PLAN_SHAPES)
+def test_gam_plan_reads_every_pixel_and_channel_once(shape, itemsize):
+    """Kernel A's launch plan: its splits and thread rows read every pixel
+    of an image exactly once, its tiles and groups every channel exactly
+    once, with 16-byte words at the GAM sites, about one wave of blocks on
+    the card, and each thread at least UNROLL pixels where the image has
+    them."""
+    n, h, w, c = shape
+    hw = h * w
+    p = gam_stats.split_plan(n, hw, c, itemsize)
+    splits, pix = _plan_pixels(p, hw)
+    assert np.array_equal(np.bincount(pix, minlength=hw), np.ones(hw, np.int64))
+    assert np.all((pix >= splits * p.chunk) & (pix < (splits + 1) * p.chunk))
+    chans = (np.arange(p.tiles)[:, None, None] * p.groups * p.vec
+             + np.arange(p.groups)[None, :, None] * p.vec + np.arange(p.vec)[None, None, :])
+    chans = chans[chans < c]
+    assert np.array_equal(np.bincount(chans.ravel(), minlength=c), np.ones(c, np.int64))
+    assert c % p.vec == 0 and p.vec * itemsize <= 16 and p.groups <= 8
+    assert p.rows * p.groups <= gam_stats.THREADS and p.tiles * p.groups * p.vec >= c
+    if c >= 32:
+        assert p.vec * itemsize == 16
+    blocks = n * p.tiles * p.splits
+    wave = gam_stats._TARGET_BLOCKS
+    assert blocks <= max(wave, n * p.tiles)
+    if hw >= wave * p.rows * gam_stats.UNROLL:
+        assert blocks >= wave // 2 and p.chunk >= p.rows * gam_stats.UNROLL
+
+
+@pytest.mark.parametrize("shape,itemsize,address", [
+    ((2, 16, 8, 32), 2, 0), ((2, 16, 8, 32), 4, 0), ((1, 8, 8, 512), 2, 0),
+    ((2, 12, 10, 3), 4, 0), ((1, 1, 1, 5), 2, 0), ((2, 16, 8, 32), 2, 2)])
+def test_gam_kernel_emulation_matches_plain(shape, itemsize, address):
+    """An emulation of kernel A's partition and fixed-order combine, in
+    float64, equals the plain version run in float64."""
+    x = np.random.default_rng(9).normal(0.5, 1.5, shape)
+    p = gam_stats.split_plan(shape[0], shape[1] * shape[2], shape[3], itemsize, address)
+    if address:
+        assert p.vec == 1
+    mean, std = _emulate_gam(x, p)
+    want_mean, want_std = gam_stats.plain(torch.from_numpy(x))
+    np.testing.assert_allclose(mean, want_mean.numpy().reshape(mean.shape), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(std, want_std.numpy().reshape(std.shape), rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 8, 4), (1, 16, 8, 4), (2, 12, 10, 3), (1, 1, 5, 2)])

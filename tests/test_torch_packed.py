@@ -30,7 +30,7 @@ from uegan_tpu_torch.infer import packed
 from uegan_tpu_torch.models.generator import Generator
 from uegan_tpu_torch.models.initializers import fan_in_normal_state
 from uegan_tpu_torch.ops.s2d_fuse import (plain_residual_tail_d2s, plain_s2d_convert,
-                                          residual_tail_d2s, s2d_convert)
+                                          residual_tail_d2s, s2d_convert, s2d_plan)
 from uegan_tpu_torch.utils.image_io import read_png_rgb
 
 CD = 8
@@ -200,6 +200,68 @@ def test_residual_tail_d2s_plain_matches_pallas(n, hp, wp, c, th):
     assert np.isnan(want).sum() >= 2
     np.testing.assert_array_equal(got.float().numpy(), want)  # NaN positions must agree
     np.testing.assert_array_equal(plain_residual_tail_d2s(rt, xt).float().numpy(), want)
+
+
+def _s2d_by_row_pairs(x: torch.Tensor, out_dtype: torch.dtype, address: int) -> torch.Tensor:
+    """Kernel C as its blocks run, on bytes: for each row pair and column
+    block of ``s2d_plan``, the two source runs copied as ``in_word``-byte
+    words into one buffer, each output run j = 2 wq + pi taken from source
+    row pi's run wq and converted, the output run written back as
+    ``out_word``-byte words.  Every run's start and length must be whole
+    words, at ``address`` (the input's address mod 16)."""
+    n, h, w, c = x.shape
+    si, so = x.element_size(), torch.tensor([], dtype=out_dtype).element_size()
+    p = s2d_plan(w, c, si, so, address)
+    assert p.in_span % 16 == 0 and p.in_span >= 4 * p.pairs * c * si
+    assert p.smem == p.in_span + 4 * p.pairs * c * so
+    src = x.reshape(-1).view(torch.uint8)
+    out = torch.empty(n * h * w * c * so, dtype=torch.uint8)
+    wq_total, wc = w // 2, w * c
+    for rp in range(n * h // 2):
+        for blk in range(p.blocks):
+            wq0 = blk * p.pairs
+            k = min(p.pairs, wq_total - wq0)
+            run = k * 2 * c
+            a = (rp * 2 * wc + wq0 * 2 * c) * si  # byte offset of row 2 rp's run
+            pieces = []
+            for start in (a, a + wc * si):
+                assert (address + start) % p.in_word == 0 and run * si % p.in_word == 0
+                pieces.append(src[start:start + run * si])
+            sin = torch.cat(pieces).view(x.dtype)
+            sout = torch.empty(2 * run, dtype=out_dtype)
+            for j in range(2 * k):
+                pi, wq = j & 1, j >> 1
+                sout[j * 2 * c:(j + 1) * 2 * c] = sin[pi * run + wq * 2 * c:
+                                                     pi * run + (wq + 1) * 2 * c].to(out_dtype)
+            d = (rp * 2 * wc + wq0 * 4 * c) * so
+            assert d % p.out_word == 0 and 2 * run * so % p.out_word == 0
+            out[d:d + 2 * run * so] = sout.view(torch.uint8)
+    return out.view(out_dtype).view(n, h // 2, w // 2, 4 * c)
+
+
+@pytest.mark.parametrize("shape,tin,tout,address,words", [
+    ((2, 16, 32, 3), torch.float32, torch.bfloat16, 0, (16, 16)),  # the main path's row pairs
+    ((2, 16, 32, 3), torch.float32, torch.bfloat16, 4, (4, 16)),  # input 4 bytes past 16
+    ((2, 12, 10, 3), torch.float32, torch.bfloat16, 0, (8, 8)),
+    ((1, 4, 6, 3), torch.bfloat16, torch.bfloat16, 0, (4, 8)),
+    ((1, 4, 6, 3), torch.bfloat16, torch.float32, 0, (4, 16)),
+    ((1, 4, 6, 3), torch.float32, torch.float32, 0, (8, 16)),
+    ((1, 2, 2, 5), torch.float32, torch.bfloat16, 0, (8, 8)),
+    ((1, 2, 1400, 3), torch.float32, torch.bfloat16, 0, (16, 16)),  # 3 column blocks
+    ((1, 2, 100, 64), torch.bfloat16, torch.bfloat16, 0, (16, 16)),  # 24 pairs a block
+])
+def test_s2d_kernel_row_pairs_rebuild_space_to_depth(shape, tin, tout, address, words):
+    """A mirror of kernel C's index mapping (source words into the output
+    row, by row pair and column block) rebuilds space_to_depth bit for bit,
+    with the word sizes its plan picks."""
+    x = torch.from_numpy(np.random.default_rng(5).uniform(-1, 1, shape).astype(np.float32)).to(tin)
+    x.view(-1)[:2] = torch.tensor([float("nan"), float("inf")])
+    assert s2d_plan(shape[2], shape[3], x.element_size(), 4 if tout == torch.float32 else 2,
+                    address)[2:4] == words
+    got = _s2d_by_row_pairs(x, tout, address)
+    want = plain_s2d_convert(x, tout)
+    as_int = torch.int16 if tout == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(as_int), want.view(as_int))
 
 
 def test_s2d_wrappers_refuse_what_the_kernels_do_not_take():

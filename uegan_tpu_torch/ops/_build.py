@@ -35,13 +35,14 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    # x, part, mean, std, dtype, n, hw, c, splits, chunk, eps, stream
-    "uegan_gam_stats": [_P, _P, _P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, _I64,
-                        ctypes.c_float, _P],
+    # x, part, ticket, mean, std, dtype, n, hw, c, vec, groups, splits, chunk, eps, stream
+    "uegan_gam_stats": [_P, _P, _P, _P, _P, ctypes.c_int, _I64, _I64, _I64, ctypes.c_int, _I64,
+                        _I64, _I64, ctypes.c_float, _P],
     # x, out, dtype, n, h, w, c, vec, stream
     "uegan_upsample2x": [_P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, ctypes.c_int, _P],
-    # x, out, in dtype, out dtype, n, h, w, c, stream
-    "uegan_s2d_convert": [_P, _P, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64, _I64, _P],
+    # x, out, in dtype, out dtype, n, h, w, c, pairs, in_word, out_word, in_span, smem, stream
+    "uegan_s2d_convert": [_P, _P, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64, _I64, _I64,
+                          ctypes.c_int, ctypes.c_int, _I64, _I64, _P],
     # res, xp, out, dtype, n, hp, wp, c, stream
     "uegan_residual_tail_d2s": [_P, _P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, _P],
     # x, wts, w_scale, bias, mul, out, n, l, w, cin, cout, S, s0, act, requant,

@@ -19,11 +19,59 @@ plain versions are built from.  Channels are phase-major: packed channel
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from uegan_tpu_torch.ops import _build
 
 _INDEX_LIMIT = 2 ** 31  # the kernels index elements with 32-bit offsets
+_SMEM_TARGET = 24 * 1024  # C: a block's shared memory, 9 blocks to an SM
+_SMEM_MOST = 227 * 1024  # what a block may have on Hopper
+
+
+class S2dPlan(NamedTuple):
+    """Kernel C's launch plan for one image row pair: a block takes
+    ``pairs`` pixel pairs (``blocks`` blocks across W/2), reads its two
+    source runs as ``in_word``-byte words and writes its output run as
+    ``out_word``-byte words; its shared memory holds the source runs in
+    ``in_span`` bytes, then the output run, ``smem`` bytes in all."""
+    pairs: int
+    blocks: int
+    in_word: int
+    out_word: int
+    in_span: int
+    smem: int
+
+
+def _widest_word(nbytes: list, least: int) -> int:
+    """The widest word of at most 16 bytes that divides every count."""
+    word = 16
+    while word > least and any(b % word for b in nbytes):
+        word //= 2
+    return word
+
+
+@functools.lru_cache(maxsize=None)
+def s2d_plan(w: int, c: int, in_size: int, out_size: int, in_address: int = 0,
+             out_address: int = 0) -> S2dPlan:
+    """Kernel C's plan for rows of W pixels of C channels, element sizes
+    ``in_size`` and ``out_size``, at addresses taken mod 16 (16 bytes is the
+    widest word): the whole row pair in one block where its
+    shared memory stays under _SMEM_TARGET, else runs of a multiple of 8
+    pixel pairs; words as wide as every run's start and length allow."""
+    wq = w // 2
+    most = max(1, _SMEM_TARGET // (4 * c * (in_size + out_size)))
+    pairs = wq if wq <= most else (most - most % 8 if most >= 8 else most)
+    blocks = -(-wq // pairs)
+    last = wq - (blocks - 1) * pairs
+    in_word = _widest_word([in_address, w * c * in_size, pairs * 2 * c * in_size,
+                            last * 2 * c * in_size], in_size)
+    out_word = _widest_word([out_address, 2 * w * c * out_size, pairs * 4 * c * out_size,
+                             last * 4 * c * out_size], out_size)
+    in_span = -(-(pairs * 4 * c * in_size) // 16) * 16
+    return S2dPlan(pairs, blocks, in_word, out_word, in_span, in_span + pairs * 4 * c * out_size)
 
 
 def space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -65,9 +113,15 @@ def s2d_convert(x: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16) -> tor
     lib = _build.load()
     with torch.cuda.device(x.device):
         out = torch.empty((n, h // 2, w // 2, 4 * c), dtype=out_dtype, device=x.device)
+        p = s2d_plan(w, c, x.element_size(), out.element_size(), x.data_ptr() % 16,
+                     out.data_ptr() % 16)
+        if p.smem > _SMEM_MOST or p.blocks > 65535:
+            raise ValueError(f"s2d_convert: shape {tuple(x.shape)} needs {p.smem} B of shared "
+                             f"memory in {p.blocks} blocks a row pair")
         err = lib.uegan_s2d_convert(
             x.data_ptr(), out.data_ptr(), _build.dtype_code(x), _build.dtype_code(out),
-            n, h, w, c, torch.cuda.current_stream().cuda_stream,
+            n, h, w, c, p.pairs, p.in_word, p.out_word, p.in_span, p.smem,
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "s2d_convert")
     s2d_convert.launches += 1
