@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from uegan_tpu_torch/csrc/ (one nvcc
-a source, started together) and runs seven phases, each of which ends the
+a source, started together) and runs eight phases, each of which ends the
 run with a non-zero exit on failure:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
@@ -35,7 +35,15 @@ run with a non-zero exit on failure:
    W = 200, Cout = 192): bit-equal in every column, tanh within one bfloat16
    ulp or one int8 step.  packed_conv (F) against its plain version run in
    float64, in float32 and bfloat16, at the dec4 shape (batch 2), a 5x5
-   case, ragged ones and the same tile edges, with A's and B's tolerances;
+   case, ragged ones and the same tile edges, with A's and B's tolerances.
+   The backward kernels gam_stats_bwd (A') and upsample2x_bwd (B') against
+   their plain versions run in float64, at every shape the 256 px train step
+   (batch 10, 20 images through G) gives them and at ragged ones (one pixel,
+   constant channels, H or W of one), float32 and bfloat16, with A's and B's
+   tolerances; each autograd Function's gradient against central
+   differences of its plain forward in float64; C, D, E and F refusing
+   inputs that require grad; A on two streams at once bit-equal to serial
+   calls, every stream's tickets back at zero;
 4. model: the default generator (conv_dim 32, seeded N(0, 1/fan_in) weights)
    at 512 px in float32 with TF32 off.  Canonical forward: kernels against
    plain versions, max |d| <= 1e-4, launches gam_stats 5, upsample2x 4.
@@ -57,7 +65,21 @@ run with a non-zero exit on failure:
    s2d_convert 3, residual_tail_d2s 2).  Each writes 8 result PNGs and the
    PSNR and SSIM CSVs, within 35 dB PSNR (30 dB for int8) of a float32
    canonical forward with the plain versions;
-6. timing: images/s of the canonical and the packed forward at 512 px,
+6. train: ``--mode train`` through uegan_tpu_torch.cli.run at the default
+   width (cd 32, dd 32, 256 px crops of 512, batch 10, pool 50, bf16) on a
+   synthetic FiveK layout of 30 pairs, 3 steps and a validation batch
+   (launches A 20, B 16, A' 15, B' 12), then ``--mode test`` on the .pth it
+   wrote; in process, 2 steps from one seeded state with the kernels and
+   with the plain versions in float32 with TF32 off and deterministic cuDNN
+   (losses within rel 1e-4; parameters within 1e-4 but for at most 1e-3 of
+   them, where Adam's first steps divide a nearly cancelling gradient, by at
+   most 4 lr; how many of those had gradients of 1e-6 or more is printed, and
+   step 1's gradients against each other, per tensor and in L2, with the
+   tensors whose gradients are rounding noise left out and named); 2
+   bf16 steps finite with both nets moved; one step's launches A 5, B 4,
+   A' 5, B' 4; step time and images/s with kernels and with plain versions,
+   peak memory, and the step's device time by bucket under torch.profiler;
+7. timing: images/s of the canonical and the packed forward at 512 px,
    batch 8, bfloat16, with kernels and with plain versions, and of the int8
    and int8_pallas forwards beside the packed one; each kernel's time beside
    its plain version's, its bound and, for A, B, C and F, the one PyTorch
@@ -68,8 +90,13 @@ run with a non-zero exit on failure:
    CUDA graph that captured the calls; the profiler's device time where
    capture fails).  The share of the bound and the JSON line's times are
    the device-only ones.  A's calls (its five canonical shapes), C's and
-   D's go round rings of inputs of over 100 MB, so they find them cold;
-7. profile: the canonical, packed and int8_pallas forwards at 512 px, batch
+   D's go round rings of inputs of over 100 MB, so they find them cold, and
+   so do B's (its four canonical shapes) and A' and B' at the train step's
+   shapes, beside their plain versions and the library's (for A' the
+   autograd of a torch.var_mean-based mean and std, device time from the
+   profiler, as autograd's stream rules keep it out of a CUDA graph; for B'
+   aten.upsample_bilinear2d_backward);
+8. profile: the canonical, packed and int8_pallas forwards at 512 px, batch
    8, bfloat16, under torch.profiler: wall and device-busy time per forward,
    the device's idle share, and device time in buckets of kernel names.
 
@@ -104,7 +131,13 @@ GAM_EXTRA = [(2, 1, 1, c) for c in (3, 5, 12, 32, 512)] + [(1, IMG, IMG, 32)]
 # and ragged ones (narrow words); D takes the packed shapes (N, H/2, W/2, 4C)
 S2D_SHAPES = [(4, IMG, IMG, 3), (2, 12, 10, 3), (1, 2, 2, 5), (1, 4, 6, 1), (1, 4, 6, 3)]
 KERNELS = ("gam_stats", "upsample2x", "s2d_convert", "residual_tail_d2s", "packed_conv_int8",
-           "packed_conv")
+           "packed_conv", "gam_stats_bwd", "upsample2x_bwd")
+# the train slice: 256 px crops of 512, batch 10, so G runs on 20 images
+TRAIN_HW = 256
+TRAIN_B = 10
+TRAIN_B2 = 2 * TRAIN_B
+TRAIN_GAM_SHAPES = [(TRAIN_HW >> s, 32 << s) for s in range(5)]  # (H = W, C) at ga1 .. ga5
+TRAIN_UP_SHAPES = [(TRAIN_HW >> s, 32 << s) for s in range(4, 0, -1)]  # inputs of upsample1 .. 4
 INT8_PEAK_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
 BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 CD = 32
@@ -143,13 +176,18 @@ BUCKETS = [
     ("packed_conv_int8 kernel (E)", ("Int8Epilogue",)),
     ("packed_conv kernel (F)", ("FloatEpilogue", "conv_f32")),
     ("gam_stats kernel (A)", ("gam_stats_kernel",)),
+    ("gam_stats_bwd kernel (A')", ("gam_stats_bwd_kernel",)),
+    ("upsample2x_bwd kernel (B')", ("upsample2x_bwd_kernel",)),
     ("upsample2x kernel (B)", ("upsample2x_ac",)),
     ("s2d_convert kernel (C)", ("s2d_convert_kernel",)),
     ("residual_tail_d2s kernel (D)", ("residual_tail_d2s_kernel",)),
     ("reflect pad", ("reflection_pad",)),
     ("concat", ("CatArrayBatchedCopy", "cat_")),
     ("row gathers (index_select)", ("indexSelect", "index_select")),
+    ("optimizer (Adam)", ("multi_tensor_apply", "Adam", "adam")),
+    ("conv backward (cuDNN dgrad, wgrad)", ("dgrad", "wgrad")),
     ("convolutions (cuDNN)", ("fprop", "conv", "implicit", "cudnn", "winograd")),
+    ("max pool", ("max_pool",)),
     ("matmuls (einsum, int8 _int_mm)", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "imma")),
     ("reductions", ("reduce_kernel", "Reduce")),
     ("copies and casts", ("copy", "Memcpy", "Memset", "nchwToNhwc", "nhwcToNchw")),
@@ -168,7 +206,8 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-PTXAS_SOURCES = ("packed_conv.cu", "packed_conv_int8.cu", "gam_stats.cu", "s2d_fuse.cu")
+PTXAS_SOURCES = ("packed_conv.cu", "packed_conv_int8.cu", "gam_stats.cu", "s2d_fuse.cu",
+                 "gam_stats_bwd.cu", "upsample2x.cu")
 
 
 def kernel_name(mangled: str) -> str:
@@ -296,7 +335,8 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the warm-up stream, whose kernel-A tickets already exist
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -345,7 +385,7 @@ def device_ms(fn, iters: int) -> float:
         DEVICE_METHODS.add("graph")
     except Exception as e:  # capture refused: no graph, take the profiler's view
         torch.cuda.synchronize()
-        log("6 timing", f"graph capture failed ({type(e).__name__}: {str(e)[:120]}); "
+        log("7 timing", f"graph capture failed ({type(e).__name__}: {str(e)[:120]}); "
                         f"profiler device time instead")
         ms = profiler_ms(fn, iters)
         DEVICE_METHODS.add("profiler")
@@ -431,15 +471,16 @@ def packed_forward(g):
 
 
 def _wrappers() -> dict:
-    from uegan_tpu_torch.ops.gam_stats import gam_mean_std
+    from uegan_tpu_torch.ops.gam_stats import gam_mean_std, gam_mean_std_backward
     from uegan_tpu_torch.ops.packed_conv import packed_conv
     from uegan_tpu_torch.ops.packed_conv_int8 import packed_conv_int8
-    from uegan_tpu_torch.ops.resize2x import upsample2x
+    from uegan_tpu_torch.ops.resize2x import upsample2x, upsample2x_backward
     from uegan_tpu_torch.ops.s2d_fuse import residual_tail_d2s, s2d_convert
 
     return {"gam_stats": gam_mean_std, "upsample2x": upsample2x, "s2d_convert": s2d_convert,
             "residual_tail_d2s": residual_tail_d2s, "packed_conv_int8": packed_conv_int8,
-            "packed_conv": packed_conv}
+            "packed_conv": packed_conv, "gam_stats_bwd": gam_mean_std_backward,
+            "upsample2x_bwd": upsample2x_backward}
 
 
 def counts() -> dict:
@@ -666,6 +707,173 @@ def phase_int8_kernels(dev) -> dict:
     return worst
 
 
+def phase_backward_kernels(dev) -> dict:
+    """A' and B' against their plain versions run in float64 and rounded, at
+    every shape the 256 px train step (batch 10, so 20 images through G)
+    gives them and at ragged ones, float32 and bfloat16, with A's and B's
+    tolerances; A' on the f32 mean and var that kernel A writes for it (and
+    A's mean and std with them bit-equal to A's without).  Then each
+    autograd Function's gradient (kernels, float32) against central
+    differences of its plain forward in float64 at a small shape; the
+    refusal of C, D, E and F to run where autograd would need their
+    gradient; and kernel A on two streams at once, against serial calls."""
+    import torch
+
+    from uegan_tpu_torch.ops import gam_stats, packed_conv, packed_conv_int8, resize2x, s2d_fuse
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = {"gam_stats_bwd": 0.0, "upsample2x_bwd": 0.0}
+    randn = lambda shape: torch.randn(shape, generator=gen, device=dev)
+    for shape, const in [((TRAIN_B2, h, h, c), False) for h, c in TRAIN_GAM_SHAPES] + [
+            ((2, 12, 10, 3), False), ((2, 1, 1, 5), False), ((1, 16, 16, 8), True),
+            ((2, 7, 3, 16), True)]:
+        n, _, _, c = shape
+        for dtype in (f32, bf16):
+            x = randn(shape) * 2 + 1
+            if const:
+                x[..., 0] = 0.3
+            x = x.to(dtype)
+            mean, std, m32, v32 = gam_stats._launch(x, 1e-5, keep32=True)
+            m0, s0 = gam_stats.gam_mean_std(x)
+            dm, ds = randn((n, 1, 1, c)).to(dtype), randn((n, 1, 1, c)).to(dtype)
+            got = gam_stats.gam_mean_std_backward(x, m32, v32, dm, ds)
+            want = gam_stats.plain_backward(x.double(), m32.double(), v32.double(), dm.double(),
+                                            ds.double()).to(dtype)
+            torch.cuda.synchronize()
+            same = torch.equal(mean.view(torch.uint8), m0.view(torch.uint8)) and torch.equal(
+                std.view(torch.uint8), s0.view(torch.uint8))
+            err, rel, ok = compare(got, want, dtype)
+            tag = "f32" if dtype == f32 else "bf16"
+            log("3 kernels", f"gam_stats_bwd {shape}{' constant channel' if const else ''} {tag}: "
+                             f"max abs {err:.3e} max rel {rel:.3e} "
+                             f"{'ok' if ok else 'OUT OF TOLERANCE'} (plain in f64); A's mean and "
+                             f"std with the f32 outputs {'bit-equal' if same else 'DIFFER'}")
+            if not (ok and same):
+                raise AssertionError(f"gam_stats_bwd {shape} {tag} disagrees with its plain version")
+            if dtype == f32:
+                worst["gam_stats_bwd"] = max(worst["gam_stats_bwd"], err)
+    for n, h, w, c in [(TRAIN_B2, h, h, c) for h, c in TRAIN_UP_SHAPES] + [
+            (2, 12, 10, 3), (1, 1, 5, 2), (2, 3, 1, 4)]:
+        for dtype in (f32, bf16):
+            dy = randn((n, 2 * h, 2 * w, c)).to(dtype)
+            got = resize2x.upsample2x_backward(dy)
+            want = resize2x.plain_backward(dy.double()).to(dtype)
+            torch.cuda.synchronize()
+            err, rel, ok = compare(got, want, dtype)
+            tag = "f32" if dtype == f32 else "bf16"
+            log("3 kernels", f"upsample2x_bwd dy {(n, 2 * h, 2 * w, c)} {tag}: max abs {err:.3e} "
+                             f"max rel {rel:.3e} {'ok' if ok else 'OUT OF TOLERANCE'} "
+                             f"(plain in f64)")
+            if not ok:
+                raise AssertionError(f"upsample2x_bwd {(n, h, w, c)} {tag} disagrees with its "
+                                     "plain version")
+            if dtype == f32:
+                worst["upsample2x_bwd"] = max(worst["upsample2x_bwd"], err)
+
+    # the Functions' gradients against central differences in float64
+    def numeric_vjp(fn, x64, cot, h=1e-6):
+        flat = x64.view(-1)
+        out = torch.empty_like(flat)
+        for i in range(flat.numel()):
+            keep = float(flat[i])
+            flat[i] = keep + h
+            up = fn(x64)
+            flat[i] = keep - h
+            down = fn(x64)
+            flat[i] = keep
+            out[i] = sum(((a - b) * c).sum() for a, b, c in zip(up, down, cot)) / (2 * h)
+        return out.view_as(x64)
+
+    for name, shape, fn, plain, outs in (
+            ("gam_stats", (2, 4, 3, 8), gam_stats.gam_mean_std, gam_stats.plain,
+             lambda s: [(s[0], 1, 1, s[3])] * 2),
+            ("upsample2x", (2, 4, 3, 8), resize2x.upsample2x, lambda t: (resize2x.plain(t),),
+             lambda s: [(s[0], 2 * s[1], 2 * s[2], s[3])])):
+        x64 = randn(shape).double() * 2 + 1
+        cot = [randn(s).double() for s in outs(shape)]
+        x32 = x64.float().requires_grad_()
+        got = fn(x32)
+        got = got if isinstance(got, tuple) else (got,)
+        (g,) = torch.autograd.grad(got, x32, [c.float() for c in cot])
+        want = numeric_vjp(lambda t: tuple(plain(t)), x64.clone(), cot)
+        err = float((g.double() - want).abs().max())
+        lim = 1e-4 * float(want.abs().max()) + 1e-5
+        log("3 kernels", f"{name} Function {shape} f32: gradient (kernels) vs central "
+                         f"differences of the plain forward in f64: max abs {err:.3e} (limit "
+                         f"{lim:.3e})")
+        if err > lim:
+            raise AssertionError(f"{name}'s autograd Function disagrees with finite differences")
+
+    # C, D, E and F have no backward: they refuse inputs that need a gradient
+    x = torch.rand((1, 4, 4, 3), device=dev, requires_grad=True)
+    r = torch.rand((1, 2, 2, 12), device=dev, requires_grad=True)
+    xq = torch.randint(-127, 128, (1, 4, 4, 8), device=dev, dtype=torch.int8)
+    kq = torch.randint(-127, 128, (8, 8, 1, 1), device=dev, dtype=torch.int8)
+    ws = torch.rand(8, device=dev, requires_grad=True)
+    xf = torch.rand((1, 4, 4, 8), device=dev, requires_grad=True)
+    kf, bf = torch.rand((8, 8, 3, 3), device=dev), torch.rand(8, device=dev)
+    before = counts()
+    for name, call in (("s2d_convert", lambda: s2d_fuse.s2d_convert(x)),
+                       ("residual_tail_d2s", lambda: s2d_fuse.residual_tail_d2s(r, r.detach())),
+                       ("packed_conv_int8", lambda: packed_conv_int8.packed_conv_int8(
+                           xq, kq, ws, bf, 0)),
+                       ("packed_conv", lambda: packed_conv.packed_conv(xf, kf, bf, 1))):
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            log("3 kernels", f"{name} on an input that requires grad: refused ({str(e)[:60]}...)")
+        else:
+            raise AssertionError(f"{name} ran on an input that requires grad")
+    check_counts("the refused calls", counts(), before)
+
+    # kernel A on two streams at once: each stream has its own tickets.  Small
+    # maps (one split an image, 8 blocks a call) run side by side whole;
+    # large ones (a wave of blocks a call) overlap at their tails
+    for shape, n, rounds in (((8, 16, 16, 64), 16, 5), ((8, 256, 256, 64), 6, 3)):
+        if not two_streams_agree(gam_stats, [[randn(shape).to(bf16) for _ in range(n)]
+                                             for _ in range(rounds)]):
+            raise AssertionError("kernel A on two streams disagrees with serial calls")
+    return worst
+
+
+def two_streams_agree(gam_stats, rounds: list, what: str = "3 kernels") -> bool:
+    """Kernel A over each round's inputs on two streams at once, alternating,
+    against serial calls: the same bits, and every stream's tickets back at
+    zero.  Every round takes new inputs, so an output that a call left
+    unwritten holds another round's numbers and shows."""
+    import torch
+
+    serial = [[torch.cat(gam_stats.gam_mean_std(x), -1) for x in xs] for xs in rounds]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    same = True
+    for xs, want in zip(rounds, serial):
+        # each stream first sleeps ~10 ms on the card, so that the host has
+        # queued every call behind it and the two streams' kernels then run
+        # side by side, not one per host launch
+        for s in streams:
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(20_000_000)
+        outs = [None] * len(xs)
+        for i, x in enumerate(xs):
+            with torch.cuda.stream(streams[i % 2]):
+                outs[i] = torch.cat(gam_stats.gam_mean_std(x), -1)
+        torch.cuda.synchronize()
+        same &= all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                    for a, b in zip(outs, want))
+    zero = all(int(t.abs().sum()) == 0 for t in gam_stats._tickets.values())
+    log(what, f"gam_stats on two streams at once, {len(rounds)} rounds of {len(rounds[0])} "
+              f"inputs {tuple(rounds[0][0].shape)}: results "
+              f"{'bit-equal to serial calls' if same else 'DIFFER'}, {len(gam_stats._tickets)} "
+              f"ticket sets {'all back at zero' if zero else 'NOT ZERO'}")
+    return same and zero
+
+
 def phase_model(dev) -> None:
     import torch
 
@@ -783,23 +991,14 @@ def phase_end_to_end(dev, tmp: str) -> dict:
     that launches A 4, B 3 and C 1 times."""
     import numpy as np
     import torch
-    from PIL import Image
 
     from uegan_tpu_torch import cli
     from uegan_tpu_torch.utils.image_io import normalize_u8, quantize_u8, read_png_rgb
 
     rng = np.random.default_rng(SEED)
     test_dir = os.path.join(tmp, "fivek", "test")
-    yy, xx = np.mgrid[0:IMG, 0:IMG] / IMG
-    for i in range(8):
-        for sub in ("label", "raw"):
-            os.makedirs(os.path.join(test_dir, sub), exist_ok=True)
-            base = np.stack([yy * rng.uniform(0.3, 1), xx * rng.uniform(0.3, 1),
-                             (yy + xx) / 2 * rng.uniform(0.3, 1)], -1)
-            img = np.clip(base * 255 + rng.normal(0, 12, base.shape), 0, 255).astype(np.uint8)
-            Image.fromarray(img).save(os.path.join(test_dir, sub, f"a{i:04d}.png"))
+    names = write_pairs(test_dir, ("label", "raw"), 8, (IMG, IMG), rng)
     _, sd = seeded_generator(torch.float32, "cpu")
-    names = [f"a{i:04d}" for i in range(8)]
     raw = np.stack([read_png_rgb(os.path.join(test_dir, "raw", n + ".png")) for n in names])
     g32, _ = seeded_generator(torch.float32, dev)
     torch.backends.cudnn.allow_tf32 = False
@@ -864,6 +1063,243 @@ def phase_end_to_end(dev, tmp: str) -> dict:
     return launches
 
 
+def write_pairs(root: str, subs, n: int, hw, rng, stem: str = "a") -> list:
+    """n PNG pairs of smooth gradients with noise under root/{subs}; names."""
+    import numpy as np
+    from PIL import Image
+
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    names = [f"{stem}{i:04d}" for i in range(n)]
+    for name in names:
+        for sub in subs:
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+            base = np.stack([yy * rng.uniform(0.3, 1), xx * rng.uniform(0.3, 1),
+                             (yy + xx) / 2 * rng.uniform(0.3, 1)], -1)
+            img = np.clip(base * 255 + rng.normal(0, 12, base.shape), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(root, sub, name + ".png"))
+    return names
+
+
+def train_config(dtype: str, **kw):
+    from uegan_tpu_torch.config import Config
+
+    return Config(mode="train", g_conv_dim=CD, d_conv_dim=CD, image_size=2 * TRAIN_HW,
+                  resize_size=TRAIN_HW, train_batch_size=TRAIN_B, compute_dtype=dtype,
+                  is_test_nima=False, **kw)
+
+
+def seeded_train_state(dtype: str, dev):
+    """The train state at full width (cd 32, dd 32, VGG19 to relu5_1) with
+    N(0, 1/fan_in) weights from the seed, as phase 4's generator has."""
+    import torch
+
+    from uegan_tpu_torch.models.initializers import fan_in_normal_state
+    from uegan_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(train_config(dtype), dev, (TRAIN_HW, TRAIN_HW), 1000)
+    for i, m in enumerate((state.g, state.d, state.vgg)):
+        sd = fan_in_normal_state(m, SEED + i)
+        m.load_state_dict({k: torch.from_numpy(v).to(dev) for k, v in sd.items()})
+    return state
+
+
+def train_batches(dev, k: int) -> list:
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    shape = (TRAIN_B, TRAIN_HW, TRAIN_HW, 3)
+    return [(torch.rand(shape, generator=gen, device=dev) * 2 - 1,
+             torch.rand(shape, generator=gen, device=dev) * 2 - 1) for _ in range(k)]
+
+
+def phase_train(dev, card: str, tmp: str) -> dict:
+    """The train slice at full width (cd 32, dd 32, 256 px crops of 512,
+    batch 10, rahinge with adv_input, spectral norm in D, fused D phases,
+    pool 50, bf16 with f32 parameters, seeded weights):
+
+    - ``--mode train`` through uegan_tpu_torch.cli.run (what ``python -m
+      uegan_tpu_torch`` calls) on a synthetic FiveK layout of 30 pairs
+      (3 steps, validation at the end of the epoch), launches counted, then
+      ``--mode test`` on the .pth it wrote;
+    - in process, 2 steps from one state with the kernels and with the plain
+      versions in float32, TF32 off, deterministic cuDNN: losses within rel
+      1e-4; parameters within 1e-4 but for at most 1e-3 of them (where
+      Adam's normalized first steps divide a gradient that nearly cancels),
+      by at most the two steps' 4 lr;
+    - 2 bf16 steps: finite losses, both nets' parameters moved;
+    - one bf16 step's launches: A 5, B 4, A' 5, B' 4;
+    - step time and images/s with the kernels and with the plain versions,
+      peak memory, and the step's device time by bucket under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from uegan_tpu_torch import cli
+    from uegan_tpu_torch.train.step import make_train_step
+
+    zero = dict.fromkeys(KERNELS, 0)
+    per_step = {**zero, "gam_stats": 5, "upsample2x": 4, "gam_stats_bwd": 5, "upsample2x_bwd": 4}
+    rng = np.random.default_rng(SEED)
+    data = os.path.join(tmp, "fivek_train")
+    write_pairs(os.path.join(data, "train"), ("exp", "raw"), 3 * TRAIN_B,
+                (2 * TRAIN_HW + 32, 2 * TRAIN_HW + 64), rng)
+    for part in ("val", "test"):
+        write_pairs(os.path.join(data, part), ("label", "raw"), 2, (IMG, IMG), rng)
+    root = os.path.join(tmp, "results_train")
+    common = ["--save_root_dir", root, "--g_conv_dim", str(CD), "--d_conv_dim", str(CD),
+              "--test_img_size", str(IMG), "--val_batch_size", "2", "--is_test_nima", "false",
+              "--is_test_psnr_ssim", "true", "--compute_dtype", "bfloat16", "--num_workers", "8"]
+    argv = ["--mode", "train", "--train_img_dir", os.path.join(data, "train"),
+            "--val_img_dir", os.path.join(data, "val"),
+            "--val_label_dir", os.path.join(data, "val", "label") + os.sep,
+            "--image_size", str(2 * TRAIN_HW), "--resize_size", str(TRAIN_HW),
+            "--train_batch_size", str(TRAIN_B), "--pool_size", "50", "--total_epochs", "1",
+            "--num_epochs_start_val", "0", "--val_each_epochs", "1", "--info_step", "1",
+            "--sample_step", "3"] + common
+    t0 = time.time()
+    reset_counts()
+    res = cli.run(argv)
+    torch.cuda.synchronize()
+    cli_counts = counts()
+    secs = time.time() - t0
+    want = {k: 3 * v for k, v in per_step.items()}
+    want["gam_stats"] += 5  # the validation forward (2 images, one batch)
+    want["upsample2x"] += 4
+    check_counts("--mode train (3 steps and one validation batch)", cli_counts, want)
+    losses = res["last_losses"]
+    pth = os.path.join(root, "UEGAN-FiveK", "models", "UEGAN-FiveK_rahinge_1.pth")
+    if res["steps"] != 3 or not os.path.exists(pth) or not all(
+            math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"--mode train: {res}, checkpoint {os.path.exists(pth)}")
+    log("6 train", f"python -m uegan_tpu_torch --mode train, cd {CD} dd {CD}, {TRAIN_HW} px crops "
+                   f"of {2 * TRAIN_HW}, B={TRAIN_B}, bf16, 30 pairs: 3 steps in {secs:.1f} s with "
+                   f"validation, last losses {losses}; launches {cli_counts}; wrote "
+                   f"{os.path.basename(pth)}")
+    test_dir = os.path.join(data, "test")
+    res = cli.run(["--mode", "test", "--test_img_dir", test_dir, "--test_label_dir",
+                   os.path.join(test_dir, "label") + os.sep, "--pretrained_model", "1"] + common)
+    if res["n_images"] != 2 or not math.isfinite(res["psnr"]):
+        raise AssertionError(f"--mode test on the trained .pth: {res}")
+    log("6 train", f"--mode test on {os.path.basename(pth)}: {res['n_images']} PNGs, PSNR "
+                   f"{res['psnr']:.4f} dB, SSIM {res['ssim']:.4f}")
+
+    # kernels against plain versions, 2 steps from one state, float32, with
+    # TF32 off and cuDNN's deterministic algorithms (its weight gradients
+    # otherwise add in a run-to-run order)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    batches = train_batches(dev, 2)
+    runs = {}
+    for which in ("kernels", "plain"):
+        state = seeded_train_state("float32", dev)
+        step = make_train_step(state)
+        named = [(k, p) for m in (state.g, state.d) for k, p in m.named_parameters()]
+        grad_least = {k: torch.full_like(p, math.inf) for k, p in named}
+        losses, first = [], None
+        with plain_versions() if which == "plain" else contextlib.nullcontext():
+            for b in batches:
+                losses.append({k: float(v) for k, v in step(*b)[0].items()})
+                first = first or {k: p.grad.clone() for k, p in named}
+                for k, p in named:  # the step's gradient with its decay term
+                    g = (p.grad + state.config.weight_decay * p.detach()).abs()
+                    torch.minimum(grad_least[k], g, out=grad_least[k])
+        runs[which] = (losses, {k: p.detach().clone() for k, p in named}, grad_least, first)
+        del step, state
+    torch.backends.cudnn.deterministic = False
+    worst_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                    for a, b in zip(runs["kernels"][0], runs["plain"][0]) for k in a)
+    # step 1's gradients, before Adam normalizes them, printed: per tensor the
+    # largest difference against the largest gradient, and all of them in L2.
+    # The GAMs' squeeze and excite weights and fuse biases feed only
+    # spatially constant terms, which the instance norm after the fuse
+    # removes, so their gradients are rounding noise (under 1e-5 of the
+    # model's largest): listed, not compared.  The hinge losses' masks flip
+    # where a prediction lies within rounding of a hinge, which moves whole
+    # pixels' gradients, so no tolerance is set on these
+    first_k, first_p = runs["kernels"][3], runs["plain"][3]
+    top = max(float(g.abs().max()) for g in first_p.values())
+    dead = [k for k, g in first_p.items() if float(g.abs().max()) < 1e-5 * top]
+    grad_rel, grad_worst = max((float((first_k[k] - g).abs().max()) / float(g.abs().max()), k)
+                               for k, g in first_p.items() if k not in dead)
+    grad_l2 = math.sqrt(sum(float(((first_k[k] - g) ** 2).sum()) for k, g in first_p.items())
+                        / sum(float((g ** 2).sum()) for g in first_p.values()))
+    pk, pp, gk = runs["kernels"][1], runs["plain"][1], runs["kernels"][2]
+    diffs = torch.cat([(pk[k] - pp[k]).abs().flatten() for k in pk])
+    grads = torch.cat([gk[k].flatten() for k in pk])
+    off = diffs > 1e-4
+    n_off, n_off_steady = int(off.sum()), int((off & (grads >= 1e-6)).sum())
+    by_name = sorted(((int(((pk[k] - pp[k]).abs() > 1e-4).sum()), k) for k in pk), reverse=True)
+    cfg = train_config("float32")
+    log("6 train", f"2 steps f32 (TF32 off, deterministic cuDNN), kernels vs plain: losses "
+                   f"{runs['kernels'][0]} vs {runs['plain'][0]}, max rel {worst_rel:.3e} (limit "
+                   f"1e-4); step 1's gradients: relative L2 {grad_l2:.3e}, per tensor at most "
+                   f"{grad_rel:.3e} of its largest ({grad_worst}), {len(dead)} tensors whose "
+                   f"gradients are under 1e-5 of the largest not compared {dead}; "
+                   f"parameters max abs {float(diffs.max()):.3e}, {n_off} of "
+                   f"{diffs.numel()} over 1e-4, of which {n_off_steady} had a gradient of 1e-6 "
+                   f"or more at both steps; most in {[x for x in by_name[:5] if x[0]]}; median "
+                   f"smaller |gradient| of the two steps of those over 1e-4: "
+                   f"{float(grads[off].median()) if n_off else 0.0:.3e}")
+    if (worst_rel > 1e-4 or float(diffs.max()) > 4 * max(cfg.g_lr, cfg.d_lr)
+            or n_off > 1e-3 * diffs.numel()):
+        raise AssertionError("the train step with the kernels disagrees with the plain versions")
+    del runs, diffs, grads
+    torch.backends.cudnn.allow_tf32 = True
+
+    # bf16: finite, both nets moved; one step's launches
+    state = seeded_train_state("bfloat16", dev)
+    step = make_train_step(state)
+    before = {n: {k: v.detach().clone() for k, v in m.named_parameters()}
+              for n, m in (("G", state.g), ("D", state.d))}
+    batches = train_batches(dev, 3)
+    got = [step(*b)[0] for b in batches[:2]]
+    moved = {n: max(float((p.detach() - before[n][k]).abs().max()) for k, p in m.named_parameters())
+             for n, m in (("G", state.g), ("D", state.d))}
+    reset_counts()
+    step(*batches[2])
+    torch.cuda.synchronize()
+    check_counts("one bf16 train step", counts(), per_step)
+    finite = all(math.isfinite(float(v)) for m in got for v in m.values())
+    log("6 train", f"bf16 steps: losses {[{k: round(float(v), 4) for k, v in m.items()} for m in got]}"
+                   f", finite {finite}; largest move G {moved['G']:.3e}, D {moved['D']:.3e}; "
+                   f"launches a step {per_step}")
+    if not finite or min(moved.values()) <= 0:
+        raise AssertionError(f"bf16 train steps: finite {finite}, moved {moved}")
+
+    # time: kernels, plain, plain, kernels (5 steps each, after 2 of warm-up)
+    def step_ms(k: int = 5) -> float:
+        for b in batches[:2]:
+            step(*b)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(k):
+            step(*batches[i % 3])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / k * 1e3
+
+    times = {"kernels": [], "plain": []}
+    for which in ("kernels", "plain", "plain", "kernels"):
+        with plain_versions() if which == "plain" else contextlib.nullcontext():
+            times[which].append(step_ms())
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    torch.cuda.reset_peak_memory_stats()
+    step(*batches[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for k in ("kernels", "plain"):
+        log("6 train", f"train step {TRAIN_HW}px B={TRAIN_B} bf16 with {k}: {ms[k]:.3f} ms/step, "
+                       f"{TRAIN_B * 1000 / ms[k]:.2f} img/s (runs {times[k]}) [{card}]")
+    log("6 train", f"peak device memory of a step: {peak:.3f} GiB [{card}]")
+    r = profile(lambda: step(*batches[0]), iters=5, warmup=2)
+    log("6 train", f"train step under torch.profiler: wall {r['wall_ms']:.3f} ms per step, device "
+                   f"busy {r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f} [{card}]")
+    log("6 train", "| bucket | ms per step | kernels per step | share of busy |")
+    for k, (b_ms, n) in sorted(r["buckets"].items(), key=lambda kv: -kv[1][0]):
+        log("6 train", f"| {k} | {b_ms:.3f} | {n:g} | {b_ms / r['busy_ms']:.1%} |")
+    return {"launches": cli_counts, "ms": ms, "peak_gib": peak, "profile": r}
+
+
 def phase_timing(dev, card: str) -> dict:
     import torch
     import torch.nn.functional as F
@@ -883,10 +1319,10 @@ def phase_timing(dev, card: str) -> dict:
                     times[which].append(cuda_ms(lambda: step(x), iters=10))
             fwd[model] = {k: sum(v) / len(v) for k, v in times.items()}
             for k in ("kernels", "plain"):
-                log("6 timing", f"{model} generator {IMG}px B={b} bf16 with {k}: "
+                log("7 timing", f"{model} generator {IMG}px B={b} bf16 with {k}: "
                                 f"{fwd[model][k]:.3f} ms/forward, "
                                 f"{b * 1000 / fwd[model][k]:.1f} img/s (runs {times[k]}) [{card}]")
-    log("6 timing", f"packed vs canonical with kernels: {fwd['packed']['kernels']:.3f} vs "
+    log("7 timing", f"packed vs canonical with kernels: {fwd['packed']['kernels']:.3f} vs "
                     f"{fwd['canonical']['kernels']:.3f} ms/forward, "
                     f"{b * 1000 / fwd['packed']['kernels']:.1f} vs "
                     f"{b * 1000 / fwd['canonical']['kernels']:.1f} img/s [{card}]")
@@ -904,7 +1340,7 @@ def phase_timing(dev, card: str) -> dict:
             times[k].append(cuda_ms(lambda: steps[k](x), iters=10))
     for k, v in times.items():
         fwd[k] = {"kernels": sum(v) / len(v)}
-        log("6 timing", f"{k} forward {IMG}px B={b} with kernels: {fwd[k]['kernels']:.3f} "
+        log("7 timing", f"{k} forward {IMG}px B={b} with kernels: {fwd[k]['kernels']:.3f} "
                         f"ms/forward, {b * 1000 / fwd[k]['kernels']:.1f} img/s (runs {v}) [{card}]")
 
     def three(kern, plain, lib, iters):
@@ -951,19 +1387,29 @@ def phase_timing(dev, card: str) -> dict:
                       ring_calls(lambda i: torch.var_mean(xa[i], dim=(1, 2), correction=1), ring),
                       50)
             add("gam_stats", t, nbytes + 2 * b * c * 2)
-            log("6 timing", f"gam_stats ({b},{h},{h},{c}) bf16, ring of {ring} ("
+            log("7 timing", f"gam_stats ({b},{h},{h},{c}) bf16, ring of {ring} ("
                             f"{ring * nbytes / 1e6:.0f} MB): kernel {us(t, 'kernel')}, plain "
                             f"{us(t, 'plain')}, torch.var_mean {us(t, 'library')} per call "
                             f"[{card}]")
             del xa
+        # B: the four canonical shapes, cold, as A's
         for h, c in UP_SHAPES:
-            xb = torch.randn((b, h, h, c), generator=gen, device=dev).to(torch.bfloat16)
-            lib = lambda: F.interpolate(xb.permute(0, 3, 1, 2), scale_factor=2, mode="bilinear",
-                                        align_corners=True)
-            t = three(lambda: resize2x.upsample2x(xb), lambda: resize2x.plain(xb), lib, 50)
-            add("upsample2x", t, xb.numel() * 2 * 5)
-            log("6 timing", f"upsample2x ({b},{h},{h},{c}) bf16: kernel {us(t, 'kernel')}, plain "
+            nbytes = b * h * h * c * 2
+            ring = 100_000_000 // nbytes + 1
+            xb = [torch.randn((b, h, h, c), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(ring)]
+            t = three(ring_calls(lambda i: resize2x.upsample2x(xb[i]), ring),
+                      ring_calls(lambda i: resize2x.plain(xb[i]), ring),
+                      ring_calls(lambda i: F.interpolate(xb[i].permute(0, 3, 1, 2),
+                                                         scale_factor=2, mode="bilinear",
+                                                         align_corners=True), ring), 50)
+            add("upsample2x", t, nbytes * 5)
+            log("7 timing", f"upsample2x ({b},{h},{h},{c}) bf16, ring of {ring} ("
+                            f"{ring * nbytes / 1e6:.0f} MB): kernel {us(t, 'kernel')}, plain "
                             f"{us(t, 'plain')}, F.interpolate {us(t, 'library')} per call [{card}]")
+            del xb
+        with torch.inference_mode(False):  # the library call of A' is an autograd backward
+            timing_backward(dev, card, gen, three, add, us)
         # C and D: their inputs fit in the 50 MB L2, so each timed call takes
         # the next of 4 input sets (151 MB together) and finds its inputs cold
         ring = 4
@@ -978,14 +1424,14 @@ def phase_timing(dev, card: str) -> dict:
                   ring_calls(lambda i: s2d_fuse.plain_s2d_convert(xs[i]), ring),
                   ring_calls(lambda i: library_s2d(xs[i]), ring), 40)
         add("s2d_convert", t, xs[0].numel() * 4 + xs[0].numel() * 2)
-        log("6 timing", f"s2d_convert ({b},{IMG},{IMG},3) f32 -> bf16: kernel {us(t, 'kernel')}, "
+        log("7 timing", f"s2d_convert ({b},{IMG},{IMG},3) f32 -> bf16: kernel {us(t, 'kernel')}, "
                         f"plain {us(t, 'plain')}, one permuted .to() {us(t, 'library')} per call "
                         f"[{card}]")
         t = three(ring_calls(lambda i: s2d_fuse.residual_tail_d2s(rs[i], ps[i]), ring),
                   ring_calls(lambda i: s2d_fuse.plain_residual_tail_d2s(rs[i], ps[i]), ring),
                   None, 40)
         add("residual_tail_d2s", t, rs[0].numel() * 2 * 3)
-        log("6 timing", f"residual_tail_d2s {pshape} bf16: kernel {us(t, 'kernel')}, plain "
+        log("7 timing", f"residual_tail_d2s {pshape} bf16: kernel {us(t, 'kernel')}, plain "
                         f"{us(t, 'plain')} per call [{card}]")
         timing_int8(dev, card, gen, b, add)
     methods = " and ".join(sorted(DEVICE_METHODS))
@@ -997,7 +1443,9 @@ def phase_timing(dev, card: str) -> dict:
         dv, ev = p["device"], p["eager"]
         lib = "none" if dv["library"] is None else (
             f"{dv['library']:.4f} (eager {ev['library']:.4f})")
-        log("6 timing", f"{name} per {'forward' if name != 'packed_conv' else 'dec4-shape call'}, "
+        per_what = {"packed_conv": "dec4-shape call", "gam_stats_bwd": "train step",
+                    "upsample2x_bwd": "train step"}.get(name, "forward")
+        log("7 timing", f"{name} per {per_what}, "
                         f"device-only ({methods}): kernel {dv['kernel']:.4f} ms (eager "
                         f"{ev['kernel']:.4f}), plain {dv['plain']:.4f} (eager {ev['plain']:.4f}), "
                         f"library {lib} ms, bound {p['bound']:.4f} ms by {p['bound_by']} "
@@ -1005,6 +1453,63 @@ def phase_timing(dev, card: str) -> dict:
                         f"{p['ops'] / 1e9:.1f} G operations: {t_ops:.4f} ms), "
                         f"{p['bound'] / dv['kernel']:.0%} of the bound [{card}]")
     return {"forward": fwd, "per_kernel": per}
+
+
+def timing_backward(dev, card: str, gen, three, add, us) -> None:
+    """A' and B' at the train step's shapes (256 px, 20 images through G,
+    bf16), each call on the next of a ring of inputs of over 100 MB (cold),
+    beside their plain versions and the library's: for A' the autograd of a
+    torch.var_mean-based mean and std, for B'
+    aten.upsample_bilinear2d_backward with align_corners."""
+    import torch
+
+    from uegan_tpu_torch.ops import gam_stats, resize2x
+
+    n = TRAIN_B2
+    for h, c in TRAIN_GAM_SHAPES:
+        nbytes = n * h * h * c * 2
+        ring = 100_000_000 // nbytes + 1
+        sets = []
+        for _ in range(ring):
+            x = torch.randn((n, h, h, c), generator=gen, device=dev).to(torch.bfloat16)
+            _, _, m32, v32 = gam_stats._launch(x, 1e-5, keep32=True)
+            dm = torch.randn((n, 1, 1, c), generator=gen, device=dev).to(torch.bfloat16)
+            ds = torch.randn((n, 1, 1, c), generator=gen, device=dev).to(torch.bfloat16)
+            xg = x.detach().requires_grad_()
+            var, mean = torch.var_mean(xg, dim=(1, 2), keepdim=True, correction=1)
+            sets.append((x, m32, v32, dm, ds, xg, mean, torch.sqrt(var + 1e-5)))
+        t = three(ring_calls(lambda i: gam_stats.gam_mean_std_backward(*sets[i][:5]), ring),
+                  ring_calls(lambda i: gam_stats.plain_backward(*sets[i][:5]), ring), None, 20)
+        # autograd runs each backward op on its forward's stream, which a CUDA
+        # graph captured on another stream cannot take: the profiler's device
+        # time of its kernels instead
+        lib = ring_calls(lambda i: torch.autograd.grad(
+            (sets[i][6], sets[i][7]), sets[i][5], (sets[i][3], sets[i][4]), retain_graph=True),
+            ring)
+        t["eager"]["library"], t["device"]["library"] = cuda_ms(lib, 20), profiler_ms(lib, 20)
+        DEVICE_METHODS.add("profiler")
+        add("gam_stats_bwd", t, 2 * nbytes + 4 * n * c * 2 + 2 * n * c * 4)
+        log("7 timing", f"gam_stats_bwd ({n},{h},{h},{c}) bf16, ring of {ring} ("
+                        f"{ring * nbytes / 1e6:.0f} MB): kernel {us(t, 'kernel')}, plain "
+                        f"{us(t, 'plain')}, autograd of torch.var_mean {us(t, 'library')} per "
+                        f"call [{card}]")
+        del sets
+    for h, c in TRAIN_UP_SHAPES:
+        nbytes = n * 4 * h * h * c * 2  # dy
+        ring = 100_000_000 // nbytes + 1
+        dys = [torch.randn((n, 2 * h, 2 * h, c), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(ring)]
+        lib = lambda i: torch.ops.aten.upsample_bilinear2d_backward(
+            dys[i].permute(0, 3, 1, 2), [2 * h, 2 * h], [n, c, h, h], True, None, None)
+        t = three(ring_calls(lambda i: resize2x.upsample2x_backward(dys[i]), ring),
+                  ring_calls(lambda i: resize2x.plain_backward(dys[i]), ring),
+                  ring_calls(lib, ring), 20)
+        add("upsample2x_bwd", t, nbytes + nbytes // 4)
+        log("7 timing", f"upsample2x_bwd dy ({n},{2 * h},{2 * h},{c}) bf16, ring of {ring} ("
+                        f"{ring * nbytes / 1e6:.0f} MB): kernel {us(t, 'kernel')}, plain "
+                        f"{us(t, 'plain')}, aten.upsample_bilinear2d_backward "
+                        f"{us(t, 'library')} per call [{card}]")
+        del dys
 
 
 def timing_int8(dev, card: str, gen, b: int, add) -> None:
@@ -1034,7 +1539,7 @@ def timing_int8(dev, card: str, gen, b: int, add) -> None:
     m = xq.numel() // c4
     add("packed_conv_int8", {how: {**t[how], "library": None} for how in t},
         xq.numel() + m * c4 * 2 + kq.numel(), 2 * m * c4 * c4, INT8_PEAK_OPS)
-    log("6 timing", f"packed_conv_int8 ga1 {shape} -> {c4} bf16: kernel {ms(t, 'kernel')}, "
+    log("7 timing", f"packed_conv_int8 ga1 {shape} -> {c4} bf16: kernel {ms(t, 'kernel')}, "
                     f"plain (the int8 mode's conv2d_int8 + dequant) {ms(t, 'plain')}, "
                     f"torch._int_mm alone {ms(t, 'int_mm')} per call [{card}]")
 
@@ -1055,7 +1560,7 @@ def timing_int8(dev, card: str, gen, b: int, add) -> None:
     m = xq.numel() // c8
     bound = max((xq.numel() + 2 * m * c4 + m * c4) / HBM_BYTES_PER_S,
                 2 * m * c8 * 9 * c4 / INT8_PEAK_OPS) * 1e3
-    log("6 timing", f"packed_conv_int8 dec4 site {shape} -> {c4} s8 (leaky, mul, requant): "
+    log("7 timing", f"packed_conv_int8 dec4 site {shape} -> {c4} s8 (leaky, mul, requant): "
                     f"kernel {ms(t, 'kernel')}, kernel + reflect strips (_conv_q_fused) "
                     f"{ms(t, 'kernel + strips')}, the int8 mode's unfused chain "
                     f"{ms(t, 'unfused chain')} per call; bound {bound:.4f} ms, "
@@ -1074,7 +1579,7 @@ def timing_int8(dev, card: str, gen, b: int, add) -> None:
     m5 = xq.numel() // c4
     bound5 = max((xq.numel() + m5 * c4 + kq.numel()) / HBM_BYTES_PER_S,
                  2 * m5 * c4 * 9 * c4 / INT8_PEAK_OPS) * 1e3
-    log("6 timing", f"packed_conv_int8 dec5_0 site {(b, HP, HP, c4)} -> {c4} s8 (requant): "
+    log("7 timing", f"packed_conv_int8 dec5_0 site {(b, HP, HP, c4)} -> {c4} s8 (requant): "
                     f"kernel {ms(t5, 'kernel')}, the int8 mode's unfused chain "
                     f"{ms(t5, 'unfused chain')} per call; bound {bound5:.4f} ms, "
                     f"{bound5 / t5['device']['kernel']:.0%} of it device-only [{card}]")
@@ -1088,7 +1593,7 @@ def timing_int8(dev, card: str, gen, b: int, add) -> None:
                "library": lambda: F.conv2d(x.permute(0, 3, 1, 2), k, bf, padding=1)}, 5)
     add("packed_conv", t, x.numel() * 2 + m * c4 * 2 + k.numel() * 2, 2 * m * c8 * 9 * c4,
         BF16_PEAK_FLOPS)
-    log("6 timing", f"packed_conv dec4 shape {shape} -> {c4} bf16: kernel {ms(t, 'kernel')}, "
+    log("7 timing", f"packed_conv dec4 shape {shape} -> {c4} bf16: kernel {ms(t, 'kernel')}, "
                     f"plain {ms(t, 'plain')}, F.conv2d {ms(t, 'library')} per call, kernel / "
                     f"F.conv2d {t['device']['kernel'] / t['device']['library']:.2f} device-only, "
                     f"{t['eager']['kernel'] / t['eager']['library']:.2f} eager [{card}]")
@@ -1156,17 +1661,17 @@ def phase_profile(dev, card: str) -> None:
                                         use_pallas=True)
         for name, fn in (("canonical", g), ("packed", packed_forward(g)), ("int8_pallas", int8)):
             r = profile(lambda: fn(x))
-            log("7 profile", f"{name} forward {IMG}px B=8 bf16 under torch.profiler: wall "
+            log("8 profile", f"{name} forward {IMG}px B=8 bf16 under torch.profiler: wall "
                              f"{r['wall_ms']:.3f} ms per forward, device busy {r['busy_ms']:.3f} "
                              f"ms, idle share {r['idle_share']:.3f} [{card}]")
-            log("7 profile", "| bucket | ms per forward | kernels per forward | share of busy |")
+            log("8 profile", "| bucket | ms per forward | kernels per forward | share of busy |")
             for k, (ms, n) in sorted(r["buckets"].items(), key=lambda kv: -kv[1][0]):
-                log("7 profile", f"| {k} | {ms:.3f} | {n:g} | {ms / r['busy_ms']:.1%} |")
+                log("8 profile", f"| {k} | {ms:.3f} | {n:g} | {ms / r['busy_ms']:.1%} |")
             seen = set()
             for us, kname in r["longest"]:
                 if kname not in seen and len(seen) < 8:
                     seen.add(kname)
-                    log("7 profile", f"longest: {us:9.1f} us [{bucket_of(kname)}] {kname[:120]}")
+                    log("8 profile", f"longest: {us:9.1f} us [{bucket_of(kname)}] {kname[:120]}")
 
 
 def main() -> int:
@@ -1200,17 +1705,20 @@ def main() -> int:
     ptxas = ptxas_summary(_build.ptxas_report, _build.load().uegan_tc_conv_smem_bytes())
     for line in ptxas:
         log("2 build", line)
-    for key in ("Int8Epilogue", "FloatEpilogue", "gam_stats_kernel", "s2d_convert_kernel"):
+    for key in ("Int8Epilogue", "FloatEpilogue", "gam_stats_kernel", "s2d_convert_kernel",
+                "gam_stats_bwd_kernel", "upsample2x_bwd_kernel"):
         if not any(key in line for line in ptxas):
             raise AssertionError(f"ptxas's report names no {key} kernel")
 
     worst = phase_kernels(dev)
     worst_s2d = phase_s2d_kernels(dev)
     worst_int8 = phase_int8_kernels(dev)
+    worst_bwd = phase_backward_kernels(dev)
     phase_model(dev)
     phase_int8_model(dev)
     with tempfile.TemporaryDirectory(prefix="uegan_smoke_") as tmp:
         launches = phase_end_to_end(dev, tmp)
+        launches["train"] = phase_train(dev, card, tmp)["launches"]
     timing = phase_timing(dev, card)
     phase_profile(dev, card)
 
@@ -1225,9 +1733,15 @@ def main() -> int:
            "packed_conv_int8": ("uegan_tpu_torch/csrc/packed_conv_int8.cu",
                                 "uegan_tpu/ops/pallas/packed_conv_int8.py:236"),
            "packed_conv": ("uegan_tpu_torch/csrc/packed_conv.cu",
-                           "uegan_tpu/ops/pallas/packed_conv.py:155")}
+                           "uegan_tpu/ops/pallas/packed_conv.py:155"),
+           # the backward kernels stand where JAX differentiates the plain
+           # functions its train step runs (it has no backward kernel)
+           "gam_stats_bwd": ("uegan_tpu_torch/csrc/gam_stats_bwd.cu",
+                             "uegan_tpu/ops/norms.py:47"),
+           "upsample2x_bwd": ("uegan_tpu_torch/csrc/upsample2x.cu",
+                              "uegan_tpu/ops/resize.py:105")}
     err = {"gam_stats": worst["gam_stats"][0], "upsample2x": worst["upsample2x"][0],
-           **worst_s2d, **worst_int8}
+           **worst_s2d, **worst_int8, **worst_bwd}
     kernels = []
     for name in KERNELS:
         p = timing["per_kernel"][name]

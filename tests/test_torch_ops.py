@@ -193,7 +193,8 @@ def test_cpu_dispatch_and_refusals():
 
 
 @pytest.mark.parametrize("flags", [
-    {"mode": "train"}, {"is_test_nima": True}, {"tile_size": 512}, {"mesh_spatial": 2},
+    {"mode": "train", "g_norm_fun": "InstanceNorm"}, {"is_test_nima": True}, {"tile_size": 512},
+    {"mesh_spatial": 2},
     {"test_keep_aspect": True}, {"quantized_inference": "int8", "strip_rows": 8},
     {"quantized_inference": "int8_pallas", "tile_size": 512}, {"g_use_sn": True},
     {"strip_rows": 8},
@@ -252,7 +253,14 @@ def test_port_imports_no_jax():
             "uegan_tpu_torch.models.generator, uegan_tpu_torch.infer.packed, "
             "uegan_tpu_torch.ops.s2d_fuse, uegan_tpu_torch.data.pipeline, "
             "uegan_tpu_torch.infer.quantized, uegan_tpu_torch.ops.conv_int8, "
-            "uegan_tpu_torch.ops.packed_conv_int8, uegan_tpu_torch.ops.packed_conv; "
+            "uegan_tpu_torch.ops.packed_conv_int8, uegan_tpu_torch.ops.packed_conv, "
+            "uegan_tpu_torch.train.trainer, uegan_tpu_torch.train.step, "
+            "uegan_tpu_torch.train.state, uegan_tpu_torch.train.image_pool, "
+            "uegan_tpu_torch.train.schedules, uegan_tpu_torch.models.discriminator, "
+            "uegan_tpu_torch.models.vgg, uegan_tpu_torch.losses.gan, "
+            "uegan_tpu_torch.losses.perceptual, uegan_tpu_torch.losses.reconstruction, "
+            "uegan_tpu_torch.ops.spectral_norm, uegan_tpu_torch.ops.pooling, "
+            "uegan_tpu_torch.convert.from_flax, uegan_tpu_torch.utils.checkpoint; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'uegan_tpu') or m.startswith('jax_')); "
             "assert not bad, bad")

@@ -1,0 +1,132 @@
+"""PyTorch port, train slice: ``python -m uegan_tpu_torch --mode train`` on
+the vendored fixture with the verify flags (cd 8, 32 px, batch 2, 2
+epochs) on the CPU, a resume from its checkpoint, and the ``.pth`` it writes
+read back by the port's ``--mode test`` and by the JAX Tester's ``.pth``
+reader (uegan_tpu.convert.torch_import.import_uegan_checkpoint), whose
+generator forward gives the same PNGs."""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from uegan_tpu.convert.torch_import import import_uegan_checkpoint
+from uegan_tpu.data.pipeline import device_normalize, get_test_loader
+from uegan_tpu.models.generator import Generator as JaxGenerator
+from uegan_tpu.utils.image_io import device_quantize_u8
+from uegan_tpu_torch.utils.image_io import read_png_rgb
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "verify_fivek")
+KEYS = ["D_net", "G_net", "d_optimizer", "epoch", "g_optimizer", "lr_scheduler_d",
+        "lr_scheduler_g"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch thread while this file runs (the suite runs several workers
+    on a few cores), restored after it so other files keep their setting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _train_argv(root: str, epochs: int, resume: int = 0) -> list:
+    return ["--mode", "train", "--train_img_dir", os.path.join(FIXTURE, "train"),
+            "--val_img_dir", os.path.join(FIXTURE, "val"),
+            "--val_label_dir", os.path.join(FIXTURE, "val", "label") + os.sep,
+            "--save_root_dir", root, "--g_conv_dim", "8", "--d_conv_dim", "8",
+            "--image_size", "48", "--resize_size", "32", "--test_img_size", "32",
+            "--train_batch_size", "2", "--val_batch_size", "2", "--total_epochs", str(epochs),
+            "--num_epochs_start_val", "0", "--val_each_epochs", "1", "--pool_size", "4",
+            "--info_step", "1", "--sample_step", "2", "--compute_dtype", "float32",
+            "--is_test_nima", "false", "--is_test_psnr_ssim", "true", "--num_workers", "1",
+            "--pretrained_model", str(resume)]
+
+
+def test_cli_train_then_test_and_jax_reads_the_pth(tmp_path, monkeypatch, capsys):
+    from uegan_tpu_torch import cli
+
+    monkeypatch.setenv("UEGAN_TORCH_DEVICE", "cpu")
+    root = str(tmp_path / "results")
+    res = cli.run(_train_argv(root, 2))
+    out = capsys.readouterr().out
+    assert res["steps"] == 4
+    assert out.count("D/Total:") == 4 and "Avg. PSNR" in out
+    assert all(np.isfinite(v) for v in res["last_losses"].values())
+    models = os.path.join(root, "UEGAN-FiveK", "models")
+    assert sorted(os.listdir(models)) == ["UEGAN-FiveK_rahinge_1.pth", "UEGAN-FiveK_rahinge_2.pth"]
+    pth = os.path.join(models, "UEGAN-FiveK_rahinge_2.pth")
+    ckpt = torch.load(pth, map_location="cpu", weights_only=True)
+    assert sorted(ckpt) == KEYS and ckpt["epoch"] == 2.0
+    assert "d1.0.1.weight_orig" in ckpt["D_net"] and ckpt["g_optimizer"]["state"]
+    samples = os.listdir(os.path.join(root, "UEGAN-FiveK", "samples"))
+    assert len(samples) == 4  # steps 2 and 4, two images each
+    for csv in ("psnr_val_results/PSNR_total_results_epoch_avgpsnr.csv",
+                "ssim_val_results/SSIM_total_results_epoch_avgssim.csv"):
+        assert open(os.path.join(root, csv)).read().splitlines()[-1].startswith("Best epoch: ")
+
+    # resume at epoch 2 (step 4) for one more epoch
+    res = cli.run(_train_argv(root, 3, resume=2))
+    assert res["steps"] == 6
+    assert "loaded trained models (epochs: 2.0)" in capsys.readouterr().out
+
+    # the port's --mode test reads the epoch-2 checkpoint
+    test_dir = os.path.join(FIXTURE, "test")
+    cli.run(["--mode", "test", "--test_img_dir", test_dir,
+             "--test_label_dir", os.path.join(test_dir, "label") + os.sep,
+             "--save_root_dir", root, "--g_conv_dim", "8", "--test_img_size", "32",
+             "--val_batch_size", "2", "--pretrained_model", "2", "--compute_dtype", "float32",
+             "--is_test_nima", "false", "--is_test_psnr_ssim", "true", "--num_workers", "1"])
+    out_dir = os.path.join(root, "UEGAN-FiveK", "test", "test_results")
+
+    # the JAX Tester's .pth reader and its generator give the same PNGs
+    conv = import_uegan_checkpoint(pth, g_use_sn=False, d_use_sn=True)
+    assert conv["epoch"] == 2.0 and "spectral" in conv["d_vars"]
+    batch = next(iter(get_test_loader(test_dir, img_size=32, batch_size=2, num_workers=1,
+                                      process_id=0, process_count=1, emit="uint8")))
+    fwd = jax.jit(lambda p, x: JaxGenerator(conv_dim=8).apply(
+        {"params": p}, device_normalize(x), train=False, update_sn=False))
+    want = np.asarray(device_quantize_u8(fwd(conv["g_vars"]["params"],
+                                             jnp.asarray(batch["img_raw"]))))
+    for i, name in enumerate(batch["img_name"]):
+        got = read_png_rgb(os.path.join(out_dir, f"{name}_2.00_testFakeExp.png"))
+        assert np.abs(got.astype(np.int16) - want[i].astype(np.int16)).max() <= 1, name
+
+
+def test_sigterm_checkpoints_at_the_next_step_and_resumes(tmp_path, monkeypatch, capsys):
+    """SIGTERM during training: the Trainer saves a checkpoint at the next
+    step boundary (epoch 0.5 after one of two steps) and stops;
+    ``--pretrained_model -1`` resumes from it at step 1."""
+    import signal
+
+    from uegan_tpu_torch import cli
+    from uegan_tpu_torch.train import trainer as trainer_mod
+
+    monkeypatch.setenv("UEGAN_TORCH_DEVICE", "cpu")
+    root = str(tmp_path / "results")
+    real_make = trainer_mod.make_train_step
+
+    def make_with_sigterm(state):
+        step = real_make(state)
+
+        def step_then_sigterm(raw, exp):
+            out = step(raw, exp)
+            if state.step == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+        return step_then_sigterm
+
+    monkeypatch.setattr(trainer_mod, "make_train_step", make_with_sigterm)
+    res = cli.run(_train_argv(root, 1))
+    assert res["steps"] == 1
+    assert "preemption checkpoint saved" in capsys.readouterr().out
+    models = os.path.join(root, "UEGAN-FiveK", "models")
+    assert os.listdir(models) == ["UEGAN-FiveK_rahinge_0.5.pth"]
+    monkeypatch.setattr(trainer_mod, "make_train_step", real_make)
+    res = cli.run(_train_argv(root, 1, resume=-1))
+    assert res["steps"] == 2
+    assert "loaded trained models (epochs: 0.5)" in capsys.readouterr().out

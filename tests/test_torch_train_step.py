@@ -1,0 +1,127 @@
+"""PyTorch port, train slice: the whole train step against the JAX package's
+``make_train_step`` (``packed_train=False``, the bit-canonical step), two
+steps from the same numpy-seeded weights on the vendored fixture's batches.
+
+The JAX state is built from the bridged weights (no ``create_train_state``:
+its jitted init of G, D and VGG costs more than this whole test), and its
+step is jitted once.  cd 8, dd 8, 32 px, batch 2, float32, pool size 4, so
+both steps only fill the pool and no random draw enters the comparison.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from uegan_tpu.config import Config as JaxConfig
+from uegan_tpu.convert.torch_import import import_discriminator, import_generator
+from uegan_tpu.data.pipeline import get_train_loader as jax_train_loader
+from uegan_tpu.train.image_pool import pool_init
+from uegan_tpu.train.schedules import make_optimizer as jax_make_optimizer
+from uegan_tpu.train.state import ModelBundle, TrainState, build_models
+from uegan_tpu.train.step import make_train_step as jax_make_train_step
+from uegan_tpu_torch.config import Config
+from uegan_tpu_torch.convert.from_flax import discriminator_state_dict, generator_state_dict
+from uegan_tpu_torch.models.initializers import fan_in_normal_state
+from uegan_tpu_torch.train.state import create_train_state
+from uegan_tpu_torch.train.step import make_train_step
+
+from tests.test_torch_train import jax_vgg_params
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "verify_fivek",
+                       "train")
+FLAGS = dict(g_conv_dim=8, d_conv_dim=8, image_size=48, resize_size=32, train_batch_size=2,
+             pool_size=4, compute_dtype="float32", packed_train=False, is_test_nima=False)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One torch thread while this file runs (the suite runs several workers
+    on a few cores), restored after it so other files keep their setting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _jax_state(sds: dict, steps_per_epoch: int):
+    cfg = JaxConfig(**FLAGS)
+    g_model, d_model, vgg_model = build_models(cfg)
+    g_tx = jax_make_optimizer("adam", cfg.g_lr, steps_per_epoch)
+    d_tx = jax_make_optimizer("adam", cfg.d_lr, steps_per_epoch)
+    bundle = ModelBundle(g_model, d_model, vgg_model, {"params": jax_vgg_params(sds["vgg"])},
+                         g_tx, d_tx, cfg, steps_per_epoch)
+    put = lambda tree: jax.tree_util.tree_map(jnp.asarray, tree)
+    g_params = put(import_generator(sds["g"])["params"])
+    d_vars = put(import_discriminator(sds["d"], use_sn=True))
+    state = TrainState(step=jnp.zeros((), jnp.int32), g_params=g_params,
+                       d_params=d_vars["params"], g_extra={},
+                       d_extra={"spectral": d_vars["spectral"]}, g_opt=g_tx.init(g_params),
+                       d_opt=d_tx.init(d_vars["params"]), pool=pool_init(4, (32, 32, 3)),
+                       rng=jax.random.PRNGKey(0))
+    return state, jax.jit(jax_make_train_step(bundle))
+
+
+def _check_params(name: str, model: torch.nn.Module, want: dict, lr: float, wd: float) -> None:
+    """Parameters after step 1 within 1e-5 of JAX's.  Adam's first step moves
+    each element by lr * g / (|g| + 1e-8): where the gradient (with the
+    weight decay) nearly cancels, |g| < 1e-6, a 1e-8 difference of two f32
+    gradients moves the step by up to lr.  So an element may miss 1e-5 only
+    there, by no more than the most a step can move, 2 lr, and such elements
+    must be under 1e-4 of all."""
+    got = model.state_dict()
+    grads = dict(model.named_parameters())
+    n_all = n_off = 0
+    for k, w in want.items():
+        d = (got[k] - w).abs()
+        if k not in grads:  # spectral-norm u, v
+            assert float(d.max()) <= 1e-5, (name, k, float(d.max()))
+            continue
+        p = grads[k]
+        # the step's gradient with its decay term (taken at the updated
+        # parameter, which is 1e-4 of it away from the one the step saw)
+        cancels = (p.grad + wd * p.detach()).abs() < 1e-6
+        off = d > 1e-5
+        assert bool((cancels | ~off).all()), (name, k, float(d[~cancels].max()))
+        assert float(d.max()) <= 2 * lr, (name, k, float(d.max()))
+        n_all += d.numel()
+        n_off += int(off.sum())
+    assert n_off <= 1e-4 * n_all, (name, n_off, n_all)
+
+
+def test_train_step_matches_jax():
+    """Steps 1 and 2: D/Total, G/Total and the three G terms to rel 1e-4,
+    and G's and D's parameters (and D's u, v) after step 1 (_check_params)."""
+    cfg = Config(**FLAGS)
+    jl = jax_train_loader(FIXTURE, img_size=48, resize_size=32, batch_size=2, num_workers=1,
+                          process_id=0, process_count=1)
+    batches = list(jl)
+    state = create_train_state(cfg, "cpu", (32, 32), len(batches))
+    sds = {"g": fan_in_normal_state(state.g, seed=1), "d": fan_in_normal_state(state.d, seed=2),
+           "vgg": fan_in_normal_state(state.vgg, seed=3)}
+    for key, m in (("g", state.g), ("d", state.d), ("vgg", state.vgg)):
+        m.load_state_dict({k: torch.from_numpy(v) for k, v in sds[key].items()})
+    jstate, jstep = _jax_state(sds, len(batches))
+    step = make_train_step(state)
+    for i, b in enumerate(batches):
+        p0 = {k: v.detach().clone() for k, v in state.g.named_parameters()}
+        jstate, jm, _ = jstep(jstate, jnp.asarray(b["img_raw"]), jnp.asarray(b["img_exp"]))
+        pm, images = step(torch.from_numpy(b["img_raw"]), torch.from_numpy(b["img_exp"]))
+        assert sorted(pm) == sorted(jm)
+        for k, v in jm.items():
+            np.testing.assert_allclose(float(pm[k]), float(v), rtol=1e-4,
+                                       err_msg=f"{k} step {i + 1}")
+        assert images["fake_exp"].shape == (2, 32, 32, 3)
+        if i == 0:
+            want_g = generator_state_dict({"params": jax.device_get(jstate.g_params)})
+            want_d = discriminator_state_dict({"params": jax.device_get(jstate.d_params),
+                                               **jax.device_get(jstate.d_extra)})
+            _check_params("G", state.g, want_g, cfg.g_lr, cfg.weight_decay)
+            _check_params("D", state.d, want_d, cfg.d_lr, cfg.weight_decay)
+            moved = max(float((p.detach() - p0[k]).abs().max())
+                        for k, p in state.g.named_parameters())
+            assert moved > 0.5 * cfg.g_lr  # the step moved G
+    assert state.step == 2 and state.pool.count == 4

@@ -1,4 +1,4 @@
-"""CLI entry point: ``python -m uegan_tpu_torch --mode test ...``.
+"""CLI entry point: ``python -m uegan_tpu_torch --mode train|test ...``.
 
 Takes the JAX package's flags (the port's copy in config.py), so a command
 line runs unchanged on either package.  The device comes from
@@ -34,7 +34,6 @@ def resolve_device(name: Optional[str] = None) -> torch.device:
 def check_supported(args: Config) -> None:
     """Raise for each option outside this slice of the port."""
     unsupported = [
-        (args.mode == "train", "--mode train: the train slice is ROADMAP queue 1 item 6"),
         (args.is_test_nima, "--is_test_nima true: NIMA is ROADMAP queue 1 item 7 "
                             "(pass --is_test_nima false)"),
         (args.tile_size > 0, "--tile_size > 0: tiled inference is ROADMAP queue 1 item 8"),
@@ -49,28 +48,57 @@ def check_supported(args: Config) -> None:
     for hit, why in unsupported:
         if hit:
             raise NotImplementedError(why)
-    if args.packed_inference:
-        check_packed_options(args)
-    if args.mode != "test":
+    if args.mode == "train":
+        train_unsupported = [
+            (args.g_norm_fun != "none" or args.d_norm_fun != "none",
+             "--g_norm_fun / --d_norm_fun other than none: train-mode normalization is ROADMAP "
+             "queue 1 item 3"),
+            (args.optimizer_type != "adam", "--optimizer_type rmsprop: not ported (optax adds "
+                                            "eps inside the root, torch outside it)"),
+            (args.use_tensorboard, "--use_tensorboard true: TensorBoard logging is not ported"),
+        ]
+        for hit, why in train_unsupported:
+            if hit:
+                raise NotImplementedError(why)
+    elif args.mode != "test":
         raise ValueError(f"unknown mode [{args.mode}]")
+    if args.mode == "test" and args.packed_inference:
+        check_packed_options(args)
 
 
 def main(args: Config) -> Dict:
     check_supported(args)
     device = resolve_device()
     from uegan_tpu_torch.data.pipeline import get_test_loader
-    from uegan_tpu_torch.train.tester import Tester
 
     for sub in (args.model_save_path, args.sample_path, args.log_path,
                 args.val_result_path, args.test_result_path):
         os.makedirs(os.path.join(args.save_root_dir, args.version, sub), exist_ok=True)
+    emit = "uint8" if args.device_image_io else "float32"
+    if args.mode == "train":
+        from uegan_tpu_torch.data.pipeline import get_train_loader
+        from uegan_tpu_torch.train.trainer import Trainer
+
+        loaders = {
+            "ref": get_train_loader(
+                args.train_img_dir, img_size=args.image_size, resize_size=args.resize_size,
+                batch_size=args.train_batch_size, shuffle=args.shuffle,
+                num_workers=args.num_workers, drop_last=args.drop_last, seed=args.seed,
+                emit=emit),
+            "val": get_test_loader(args.val_img_dir, img_size=args.test_img_size,
+                                   batch_size=args.val_batch_size,
+                                   num_workers=args.num_workers, emit=emit),
+        }
+        return Trainer(loaders, args, device).train()
+    from uegan_tpu_torch.train.tester import Tester
+
     loaders = {
         "tes": get_test_loader(
             args.test_img_dir,
             img_size=args.test_img_size,
             batch_size=args.val_batch_size,
             num_workers=args.num_workers,
-            emit="uint8" if args.device_image_io else "float32",
+            emit=emit,
         )
     }
     return Tester(loaders, args, device).test()

@@ -1,10 +1,13 @@
-"""Flax generator variables -> torch ``state_dict`` under the reference names.
+"""Flax variables -> torch ``state_dict`` under the reference names.
 
-Inverts uegan_tpu/convert/torch_import.py:import_generator: kernels go from
-HWIO to OIHW, norm ``scale``/``bias`` become ``weight``/``bias`` and the
-``batch_stats`` ``mean``/``var`` become ``running_mean``/``running_var``.
-Values may be numpy arrays or anything ``np.asarray`` takes; nothing here
-imports JAX.
+Inverts uegan_tpu/convert/torch_import.py: ``import_generator`` (kernels go
+from HWIO to OIHW, norm ``scale``/``bias`` become ``weight``/``bias`` and
+the ``batch_stats`` ``mean``/``var`` become ``running_mean``/
+``running_var``), ``import_discriminator`` (a spectrally normalized kernel
+becomes ``weight_orig``, its ``spectral`` ``u``/``v`` ``weight_u``/
+``weight_v``) and ``import_vgg19`` (``conv{s}_{i}_kernel`` becomes
+torchvision's ``features.{idx}.weight``).  Values may be numpy arrays or
+anything ``np.asarray`` takes; nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -15,10 +18,11 @@ import numpy as np
 import torch
 
 from uegan_tpu_torch.models.blocks import ROADMAP_SN
+from uegan_tpu_torch.models.vgg import VGG19_CONVS, VGG19_TAIL
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+    return torch.from_numpy(np.array(a, copy=True))
 
 
 def _node(tree: Dict[str, Any], path: Tuple[str, ...]):
@@ -70,4 +74,48 @@ def generator_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         conv((f"ga{i}", "squeeze"), f"ga{i}.conv.0")
         conv((f"ga{i}", "excite"), f"ga{i}.conv.2")
         conv((f"ga{i}", "fuse"), f"ga{i}.fuse.0")
+    return sd
+
+
+def _oihw(kernel) -> torch.Tensor:
+    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
+
+
+def discriminator_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"params": ..., ["spectral": ...]}`` of :class:`uegan_tpu.models.
+    discriminator.Discriminator` -> state dict for ``uegan_tpu_torch``'s."""
+    params = variables["params"]
+    spectral = variables.get("spectral", {})
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(1, 6):
+        node = _node(params, (f"d{i}", "conv"))
+        if node is None:
+            raise KeyError(f"flax discriminator variables lack d{i}/conv")
+        uv = _node(spectral, (f"d{i}", "conv"))
+        if uv is not None:
+            sd[f"d{i}.0.1.weight_orig"] = _oihw(node["kernel"])
+            sd[f"d{i}.0.1.weight_u"] = _t(uv["u"])
+            sd[f"d{i}.0.1.weight_v"] = _t(uv["v"])
+        else:
+            sd[f"d{i}.0.1.weight"] = _oihw(node["kernel"])
+        sd[f"d{i}.0.1.bias"] = _t(node["bias"])
+        if _node(params, (f"d{i}", "norm")) is not None:
+            raise NotImplementedError("discriminator norm layers are not ported yet "
+                                      "(ROADMAP queue 1 item 3)")
+        sd[f"d{i}_pred.0.1.weight"] = _oihw(params[f"d{i}_pred"]["conv"]["kernel"])
+    return sd
+
+
+def vgg_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"params": ...}`` of :class:`uegan_tpu.models.vgg.VGG19Features` ->
+    torchvision-named state dict of its convs (conv5_2 .. conv5_4 where the
+    tree has them; the port's trunk ends at conv5_1 and skips them)."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    tail = {name for name, _, _ in VGG19_TAIL}
+    for name, idx, _ in VGG19_CONVS + VGG19_TAIL:
+        if name in tail and f"{name}_kernel" not in params:
+            continue
+        sd[f"features.{idx}.weight"] = _oihw(params[f"{name}_kernel"])
+        sd[f"features.{idx}.bias"] = _t(params[f"{name}_bias"])
     return sd

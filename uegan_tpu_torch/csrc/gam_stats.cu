@@ -5,7 +5,12 @@
 //   mean = S1 / hw
 //   var  = (S2 - hw * mean^2) / max(hw - 1, 1)
 //   std  = sqrt(max(var, 0) + eps)
-// with mean and std written in x's dtype.
+// with mean and std written in x's dtype.  For a training forward the
+// caller also passes mean32 and var32, and the combine writes the f32 mean
+// and the f32 var before the clamp there: the backward kernel
+// (gam_stats_bwd.cu) needs the values from before the cast to x's dtype, as
+// JAX's vjp of uegan_tpu/ops/norms.py:feature_mean_std uses them, and the
+// var from before the clamp, whose sign picks the clamp's gradient.
 //
 // What bounds it on the card: bytes.  Each element of x is read once and
 // takes two flops, so the kernel can go no faster than reading x from device
@@ -118,7 +123,8 @@ template <typename T, int V>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     gam_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
                      unsigned* __restrict__ ticket, T* __restrict__ mean, T* __restrict__ std,
-                     int64_t hw, int c, int gt, int64_t chunk, float eps) {
+                     float* __restrict__ mean32, float* __restrict__ var32, int64_t hw, int c,
+                     int gt, int64_t chunk, float eps) {
   __shared__ float sh[2][kThreads * V];
   __shared__ bool is_last;
   const int split = blockIdx.x, splits = gridDim.x, tile = blockIdx.y, n = blockIdx.z;
@@ -213,37 +219,45 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
         // +-1 ulp of s2
         const float hmm = __fmul_rn(__fmul_rn(fhw, m), m);
         const float var = (b - hmm) / (float)(hw > 1 ? hw - 1 : 1);
-        store_f32(mean + (int64_t)n * c + c0 + j, m);
-        store_f32(std + (int64_t)n * c + c0 + j, sqrtf(fmaxf(var, 0.f) + eps));
+        const int64_t at = (int64_t)n * c + c0 + j;
+        store_f32(mean + at, m);
+        store_f32(std + at, sqrtf(fmaxf(var, 0.f) + eps));
+        if (mean32 != nullptr) {
+          mean32[at] = m;
+          var32[at] = var;
+        }
       });
   if (threadIdx.x == 0) *tk = 0u;
 }
 
 template <typename T, int V>
-int launch(const void* x, void* part, void* ticket, void* mean, void* std, int64_t n,
-           int64_t hw, int64_t c, int64_t gt, int64_t splits, int64_t chunk, float eps,
-           cudaStream_t stream) {
+int launch(const void* x, void* part, void* ticket, void* mean, void* std, void* mean32,
+           void* var32, int64_t n, int64_t hw, int64_t c, int64_t gt, int64_t splits,
+           int64_t chunk, float eps, cudaStream_t stream) {
   const int64_t tiles = (c + gt * V - 1) / (gt * V);
   const dim3 grid((unsigned)splits, (unsigned)tiles, (unsigned)n);
   gam_stats_kernel<T, V><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<float*>(part), static_cast<unsigned*>(ticket),
-      static_cast<T*>(mean), static_cast<T*>(std), hw, (int)c, (int)gt, chunk, eps);
+      static_cast<T*>(mean), static_cast<T*>(std), static_cast<float*>(mean32),
+      static_cast<float*>(var32), hw, (int)c, (int)gt, chunk, eps);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_vec(int vec, const void* x, void* part, void* ticket, void* mean, void* std,
-               int64_t n, int64_t hw, int64_t c, int64_t gt, int64_t splits, int64_t chunk,
-               float eps, cudaStream_t s) {
+               void* mean32, void* var32, int64_t n, int64_t hw, int64_t c, int64_t gt,
+               int64_t splits, int64_t chunk, float eps, cudaStream_t s) {
+#define UEGAN_GAM_LAUNCH(V) \
+  launch<T, V>(x, part, ticket, mean, std, mean32, var32, n, hw, c, gt, splits, chunk, eps, s)
   switch (vec) {
-    case 1: return launch<T, 1>(x, part, ticket, mean, std, n, hw, c, gt, splits, chunk, eps, s);
-    case 2: return launch<T, 2>(x, part, ticket, mean, std, n, hw, c, gt, splits, chunk, eps, s);
-    case 4: return launch<T, 4>(x, part, ticket, mean, std, n, hw, c, gt, splits, chunk, eps, s);
+    case 1: return UEGAN_GAM_LAUNCH(1);
+    case 2: return UEGAN_GAM_LAUNCH(2);
+    case 4: return UEGAN_GAM_LAUNCH(4);
     case 8:
-      if constexpr (sizeof(T) == 2)
-        return launch<T, 8>(x, part, ticket, mean, std, n, hw, c, gt, splits, chunk, eps, s);
+      if constexpr (sizeof(T) == 2) return UEGAN_GAM_LAUNCH(8);
       break;
   }
+#undef UEGAN_GAM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -254,19 +268,21 @@ int launch_vec(int vec, const void* x, void* part, void* ticket, void* mean, voi
 // gt: channel groups of vec a block covers (1 to 256); splits, chunk: each
 // image's pixels cut into `splits` runs of `chunk`.  part: (n, splits, 2, c)
 // float32 scratch; ticket: n * ceil(c / (gt * vec)) zeroed unsigned counters,
-// left zeroed.  Returns the cudaError_t of the launch (0 on success).
+// left zeroed.  mean32, var32: null, or (n, c) float32 outputs for the
+// backward.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int uegan_gam_stats(const void* x, void* part, void* ticket, void* mean, void* std,
-                               int dtype, int64_t n, int64_t hw, int64_t c, int vec,
-                               int64_t gt, int64_t splits, int64_t chunk, float eps,
-                               void* stream) {
+                               void* mean32, void* var32, int dtype, int64_t n, int64_t hw,
+                               int64_t c, int vec, int64_t gt, int64_t splits, int64_t chunk,
+                               float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gt < 1 || gt > kThreads) return (int)cudaErrorInvalidValue;
+  if (gt < 1 || gt > kThreads || (mean32 == nullptr) != (var32 == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_vec<float>(vec, x, part, ticket, mean, std, n, hw, c, gt, splits, chunk, eps,
-                             s);
+    return launch_vec<float>(vec, x, part, ticket, mean, std, mean32, var32, n, hw, c, gt,
+                             splits, chunk, eps, s);
   if (dtype == 1)
-    return launch_vec<__nv_bfloat16>(vec, x, part, ticket, mean, std, n, hw, c, gt, splits,
-                                     chunk, eps, s);
+    return launch_vec<__nv_bfloat16>(vec, x, part, ticket, mean, std, mean32, var32, n, hw, c,
+                                     gt, splits, chunk, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 

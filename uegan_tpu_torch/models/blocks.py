@@ -9,6 +9,12 @@ and ``forward`` does that step itself.
 
 Activations are NCHW tensors in ``torch.channels_last`` memory; the two CUDA
 kernels take the NHWC view of them, which is contiguous, at no cost.
+
+Spectral norm (the discriminator's default) keeps the names of
+``torch.nn.utils.spectral_norm`` (``weight_orig``, ``weight_u``,
+``weight_v``) and the JAX package's semantics: one power iteration per
+train-mode forward, and ``sn_branches`` > 1 scales each branch of a fused
+forward by the sigma of its own iteration (ops/spectral_norm.py).
 """
 
 from __future__ import annotations
@@ -22,8 +28,10 @@ from torch import nn
 from uegan_tpu_torch.ops.conv import conv2d_reflect
 from uegan_tpu_torch.ops.gam_stats import gam_mean_std
 from uegan_tpu_torch.ops.norms import instance_norm
+from uegan_tpu_torch.ops.spectral_norm import spectral_sigmas
 
-ROADMAP_SN = "spectral norm in the generator (--g_use_sn true) is not ported yet (ROADMAP queue 1 item 3)"
+ROADMAP_SN = ("spectral norm in the generator (--g_use_sn true) is not ported yet: the "
+              "discriminator's is, the generator's blocks and GAMs are ROADMAP queue 1 item 3")
 
 
 def get_act_fun(act_fun_type: str = "LeakyReLU") -> Callable[[torch.Tensor], torch.Tensor]:
@@ -49,6 +57,57 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
     """Contiguous NHWC -> NCHW view in channels_last memory."""
     return x.permute(0, 3, 1, 2)
+
+
+class SpectralConv2d(nn.Module):
+    """A conv's parameters, with spectral norm under the names
+    ``torch.nn.utils.spectral_norm`` gives them (``weight_orig`` and the
+    ``weight_u``, ``weight_v`` buffers), or a plain ``weight``.  ``forward``
+    is ReflectionPad + conv in ``dtype`` (+ bias), as SNConv's in JAX.
+    u and v are filled by models/initializers.py:init_weights."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                 bias: bool = True, use_sn: bool = False, device=None):
+        super().__init__()
+        self.stride, self.use_sn = stride, use_sn
+        shape = (out_ch, in_ch, kernel_size, kernel_size)
+        w = nn.Parameter(torch.empty(shape, device=device))
+        if use_sn:
+            self.weight_orig = w
+            self.register_buffer("weight_u", torch.zeros(out_ch, device=device))
+            self.register_buffer("weight_v", torch.zeros(in_ch * kernel_size ** 2,
+                                                         device=device))
+        else:
+            self.weight = w
+        self.bias = nn.Parameter(torch.zeros(out_ch, device=device)) if bias else None
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, update_sn: bool = True,
+                sn_branches: int = 1) -> torch.Tensor:
+        """x (N, C, H, W) -> (N, out, H', W') in ``dtype``.  With spectral norm
+        and ``self.training`` and ``update_sn``, u and v advance by
+        ``sn_branches`` power iterations; ``sn_branches`` > 1 takes x as that
+        many equal batch slices that torch would run as sequential forwards."""
+        if not self.use_sn:
+            return conv2d_reflect(x, self.weight, self.bias, self.stride, dtype=dtype)
+        update = update_sn and self.training
+        sig, u, v = spectral_sigmas(self.weight_orig, self.weight_u, self.weight_v,
+                                    sn_branches, update=update)
+        if update:
+            with torch.no_grad():
+                self.weight_u.copy_(u)
+                self.weight_v.copy_(v)
+        if sn_branches == 1:
+            y = conv2d_reflect(x, self.weight_orig / sig[0], None, self.stride, dtype=dtype)
+        else:
+            n = x.shape[0]
+            if n % sn_branches:
+                raise ValueError(f"sn_branches {sn_branches} does not divide the batch {n}")
+            y = conv2d_reflect(x, self.weight_orig, None, self.stride, dtype=dtype)
+            scale = torch.repeat_interleave(1.0 / sig, n // sn_branches)
+            y = (y.float() * scale.view(n, 1, 1, 1)).to(dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+        return y
 
 
 class SNConv(nn.Module):
@@ -88,7 +147,8 @@ class NormLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             raise NotImplementedError(
-                "train-mode normalization comes with the train slice (ROADMAP queue 1 item 6)")
+                "train-mode normalization (--g_norm_fun / --d_norm_fun other than none) is not "
+                "ported yet (ROADMAP queue 1 item 3)")
         shape = (1, -1, 1, 1)
         y = (x.float() - self.running_mean.view(shape)) * torch.rsqrt(
             self.running_var.view(shape) + self.eps)
@@ -96,7 +156,7 @@ class NormLayer(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """ReflectionPad + conv + norm + activation (reference models.py:88-101);
+    """ReflectionPad + (SN) conv + norm + activation (reference models.py:88-101);
     ``main.1`` is the conv and ``main.2`` the norm, when there is one."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
@@ -119,6 +179,54 @@ class ConvBlock(nn.Module):
         if len(self.main) > 2:
             y = self.main[2](y)
         return self.act(y)
+
+
+class DisConvBlock(nn.Sequential):
+    """The discriminator's stage (reference models.py:158-167, the same
+    structure as ConvBlock): index 0 the reflect pad, 1 the (spectrally
+    normalized) conv, 2 the norm when there is one; then the activation.
+    Train-mode norms are not ported (``--d_norm_fun none`` is the default)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 2,
+                 norm_fun: str = "none", act_fun: str = "LeakyReLU", use_sn: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        if norm_fun != "none":
+            raise NotImplementedError(
+                f"--d_norm_fun {norm_fun}: train-mode normalization in the discriminator is "
+                "not ported yet (ROADMAP queue 1 item 3)")
+        super().__init__(nn.Identity(), SpectralConv2d(in_ch, out_ch, kernel_size, stride,
+                                                       bias=True, use_sn=use_sn, device=device))
+        self.dtype = dtype
+        self.act = get_act_fun(act_fun)
+
+    def forward(self, x: torch.Tensor, update_sn: bool = True,
+                sn_branches: int = 1) -> torch.Tensor:
+        return self.act(self[1](x, self.dtype, update_sn, sn_branches))
+
+
+class PredConvBlock(nn.Sequential):
+    """The discriminator's prediction head (reference models.py:170-182):
+    ReflectionPad + conv (no bias, no spectral norm), then tanh for
+    hinge/rahinge, sigmoid for ls/rals, and the raw logits for original and w
+    (the JAX package's extension, uegan_tpu/models/blocks.py:273-281).
+    Index 1 is the conv."""
+
+    def __init__(self, in_ch: int, kernel_size: int, adv_loss_type: str = "rahinge",
+                 dtype: torch.dtype = torch.float32, device=None):
+        if adv_loss_type not in ("ls", "rals", "hinge", "rahinge", "original", "w"):
+            raise NotImplementedError(f"Adversarial loss [{adv_loss_type}] is not found")
+        super().__init__(nn.Identity(), SpectralConv2d(in_ch, 1, kernel_size, 1, bias=False,
+                                                       device=device))
+        self.dtype = dtype
+        self.adv_loss_type = adv_loss_type
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self[1](x, self.dtype)
+        if self.adv_loss_type in ("ls", "rals"):
+            return torch.sigmoid(y)
+        if self.adv_loss_type in ("hinge", "rahinge"):
+            return torch.tanh(y)
+        return y
 
 
 class GAM(nn.Module):

@@ -15,6 +15,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from uegan_tpu_torch.models.blocks import SpectralConv2d
+from uegan_tpu_torch.ops.spectral_norm import init_uv
+
 
 def get_initializer(init_type: str, gain: float = 0.02) -> Callable:
     """init_type -> fn(weight, generator) that fills an OIHW weight in place."""
@@ -43,13 +46,23 @@ def init_weights(
     gain: float = 0.02,
     generator: Optional[torch.Generator] = None,
 ) -> nn.Module:
-    """Initialize every conv weight of ``model``; biases are zero."""
+    """Initialize every conv weight of ``model``; biases are zero.  A
+    spectrally normalized conv also gets random normalized u and v."""
     fill = get_initializer(init_type, gain)
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             fill(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, SpectralConv2d):
+            w = m.weight_orig if m.use_sn else m.weight
+            fill(w, generator)
+            if m.bias is not None:
+                m.bias.zero_()
+            if m.use_sn:
+                u, v = init_uv(w.shape, generator)
+                m.weight_u.copy_(u)
+                m.weight_v.copy_(v)
     return model
 
 
@@ -65,12 +78,14 @@ def fan_in_normal_state(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
     out = {}
     for name, t in model.state_dict().items():
         shape = tuple(t.shape)
-        if name.endswith("weight") and len(shape) == 4:
+        if name.endswith(("weight", "weight_orig")) and len(shape) == 4:
             std = 1.0 / math.sqrt(shape[1] * shape[2] * shape[3])
         else:
             std = 0.1
         v = rng.standard_normal(shape) * std
         if name.endswith("running_var"):
             v = 1.0 + np.abs(v)
+        elif name.endswith(("weight_u", "weight_v")):  # spectral norm: unit vectors
+            v = v / np.linalg.norm(v)
         out[name] = v.astype(np.float32)
     return out

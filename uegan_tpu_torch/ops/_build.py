@@ -35,11 +35,17 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    # x, part, ticket, mean, std, dtype, n, hw, c, vec, groups, splits, chunk, eps, stream
-    "uegan_gam_stats": [_P, _P, _P, _P, _P, ctypes.c_int, _I64, _I64, _I64, ctypes.c_int, _I64,
-                        _I64, _I64, ctypes.c_float, _P],
+    # x, part, ticket, mean, std, mean32, var32, dtype, n, hw, c, vec, groups, splits, chunk,
+    # eps, stream
+    "uegan_gam_stats": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _I64, _I64, _I64, ctypes.c_int,
+                        _I64, _I64, _I64, ctypes.c_float, _P],
+    # x, dmean, dstd, mean32, var32, dx, dtype, n, hw, c, vec, eps, stream
+    "uegan_gam_stats_bwd": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _I64, _I64, _I64, ctypes.c_int,
+                            ctypes.c_float, _P],
     # x, out, dtype, n, h, w, c, vec, stream
     "uegan_upsample2x": [_P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, ctypes.c_int, _P],
+    # dy, dx, dtype, n, h, w, c (of dx), vec, stream
+    "uegan_upsample2x_bwd": [_P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, ctypes.c_int, _P],
     # x, out, in dtype, out dtype, n, h, w, c, pairs, in_word, out_word, in_span, smem, stream
     "uegan_s2d_convert": [_P, _P, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64, _I64, _I64,
                           ctypes.c_int, ctypes.c_int, _I64, _I64, _P],
@@ -178,6 +184,19 @@ def check_nhwc(x, what: str) -> None:
         raise ValueError(f"{what}: empty input of shape {tuple(x.shape)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: device {x.device} is neither cpu nor cuda")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would have to differentiate a kernel that has no
+    backward: a launch writes its output through a raw pointer, so the
+    result would carry no gradient and nothing would say so.  Kernels C-F
+    run only under ``torch.no_grad`` or ``torch.inference_mode`` on every
+    path; A and B have backward kernels (ops/gam_stats.py, ops/resize2x.py)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward and its output would carry no gradient; "
+            "call it under torch.no_grad() or torch.inference_mode(), or on tensors that do "
+            "not require grad")
 
 
 def dtype_code(x) -> int:

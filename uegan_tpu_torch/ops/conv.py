@@ -24,6 +24,17 @@ def same_reflect_padding(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size + (kernel_size - 1) * (dilation - 1) - 1) // 2
 
 
+def reflect_indices(n: int, pad: int, device=None) -> torch.Tensor:
+    """Source index of each of the n + 2 * pad positions of a reflect-padded
+    axis, as numpy's ``mode="reflect"`` gives them for any pad: period
+    2(n - 1), the border not repeated."""
+    idx = torch.arange(-pad, n + pad, device=device)
+    if n == 1:
+        return torch.zeros_like(idx)
+    m = torch.remainder(idx, 2 * (n - 1))
+    return torch.where(m > n - 1, 2 * (n - 1) - m, m)
+
+
 def conv2d_reflect(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -35,11 +46,13 @@ def conv2d_reflect(
     """ReflectionPad2d + conv.  x (N, C, H, W), weight (O, I, k, k)."""
     pad = same_reflect_padding(int(weight.shape[-1]), dilation)
     x = x.to(dtype)
-    if pad:
-        if pad >= x.shape[2] or pad >= x.shape[3]:
-            raise ValueError(
-                f"reflect pad {pad} needs a larger map than {tuple(x.shape[2:])}: "
-                "the input image is too small for the generator (at least 32 px)")
+    if pad and (pad >= x.shape[2] or pad >= x.shape[3]):
+        # F.pad refuses a reflect pad as wide as the map (the discriminator's
+        # last stages at small sizes); numpy's and so jnp.pad's reflect goes
+        # on reflecting, which is a gather of periodic indices
+        x = x[:, :, reflect_indices(x.shape[2], pad, x.device)][
+            :, :, :, reflect_indices(x.shape[3], pad, x.device)]
+    elif pad:
         # pad the NHWC view as a 5-d (N, 1, H, W, C) map: the result stays
         # channels-last, where F.pad of the NCHW tensor returns NCHW memory
         # on the card and cuDNN then converts around every conv

@@ -36,5 +36,7 @@ def feature_mean_std(x: torch.Tensor, eps: float = 1e-5) -> Tuple[torch.Tensor, 
     mean = acc.mean(dim=(1, 2), keepdim=True)
     sq = (acc * acc).mean(dim=(1, 2), keepdim=True)
     var = (sq - mean * mean) * (hw / max(hw - 1, 1))
-    std = torch.sqrt(torch.clamp(var, min=0.0) + eps)
+    # torch.maximum, not clamp: at var == 0 (hw = 1, a constant channel) its
+    # gradient splits evenly, as jnp.maximum's does, where clamp's passes all
+    std = torch.sqrt(torch.maximum(var, torch.zeros_like(var)) + eps)
     return mean.to(x.dtype), std.to(x.dtype)

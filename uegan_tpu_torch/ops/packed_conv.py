@@ -79,6 +79,7 @@ def packed_conv(xp: torch.Tensor, kp: torch.Tensor, bias: torch.Tensor, s0: int,
         raise ValueError(f"packed_conv: unknown act {act!r}")
     if xp.device.type == "cpu":
         return plain_packed_conv(xp, kp, bias, s0, act)
+    _build.refuse_grad("packed_conv", xp, kp, bias)
     n, l, w, _ = xp.shape
     if max(xp.numel(), n * l * w * cout) >= _INDEX_LIMIT:
         raise ValueError(f"packed_conv: shape {tuple(xp.shape)} -> {cout} channels has 2^31 "

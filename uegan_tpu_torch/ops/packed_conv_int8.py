@@ -126,6 +126,7 @@ def packed_conv_int8(xp: torch.Tensor, kp: torch.Tensor, w_scale: torch.Tensor,
     xp = xp.contiguous()
     if xp.device.type == "cpu":
         return plain_packed_conv_int8(xp, kp, w_scale, bias, s0, act, mul, out_scale, requant)
+    _build.refuse_grad("packed_conv_int8", w_scale, bias, mul)
     n, l, w, _ = xp.shape
     cout = kp.shape[0]
     if max(xp.numel(), n * l * w * cout) >= _INDEX_LIMIT:

@@ -108,6 +108,7 @@ def s2d_convert(x: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16) -> tor
         raise ValueError(f"s2d_convert: H and W must be even, got {h}x{w}")
     if x.device.type == "cpu":
         return plain_s2d_convert(x, out_dtype)
+    _build.refuse_grad("s2d_convert", x)
     if x.numel() >= _INDEX_LIMIT:
         raise ValueError(f"s2d_convert: shape {tuple(x.shape)} has 2^31 elements or more")
     lib = _build.load()
@@ -142,6 +143,7 @@ def residual_tail_d2s(res: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"residual_tail_d2s: packed channels {c4} are not a multiple of 4")
     if res.device.type == "cpu":
         return plain_residual_tail_d2s(res, xp)
+    _build.refuse_grad("residual_tail_d2s", res, xp)
     if res.numel() >= _INDEX_LIMIT:
         raise ValueError(f"residual_tail_d2s: shape {tuple(res.shape)} has 2^31 elements or more")
     lib = _build.load()

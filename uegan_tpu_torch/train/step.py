@@ -1,15 +1,132 @@
-"""The generator's inference step, counterpart of uegan_tpu/train/step.py:make_eval_step.
+"""The GAN train step and the generator's inference step, counterparts of
+uegan_tpu/train/step.py:make_train_step and make_eval_step.
 
-The train step comes with the train slice (ROADMAP queue 1 item 6).
+One step, in the reference's order (reference trainer.py:75-119):
+
+1. ``fuse_g``: one G forward on cat[raw, exp]; its raw half is the fake
+   image, kept with its autograd graph for the G update, and its exp half
+   the identity output;
+2. the pool query on the detached fake;
+3. the D update: one fused D forward over [exp, store, raw] with
+   ``sn_branches=3`` (each branch scaled by the sigma of its own power
+   iteration), rahinge sums, backward into D only, Adam on D;
+4. the G update against the updated D: with ``split_g_adv`` (the default)
+   D(exp) and D(fake) as two forwards, so spectral norm advances twice; the
+   adversarial loss, VGG fidelity on (x + 1) / 2 and the multiscale identity
+   loss on the G(exp) half; backward into G only, Adam on G;
+5. the EMA of G's parameters with the Karras warmup, when ``g_ema_decay > 0``.
+
+On a card G's GAM statistics and upsamples run kernels A and B forward and
+their backward kernels A' and B' (ops/gam_stats.py, ops/resize2x.py).  The
+JAX package's ``packed_train`` (a layout lever, equal math to float
+tolerance) has no counterpart: the port runs this canonical step under both
+values.  A G with spectral norm or norm layers (no ``fuse_g``) is not
+ported.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Tuple
 
 import torch
 
+from uegan_tpu_torch.losses.gan import multiscale_gan_loss
+from uegan_tpu_torch.losses.perceptual import perceptual_loss
+from uegan_tpu_torch.losses.reconstruction import multiscale_rec_loss
+from uegan_tpu_torch.models.blocks import ROADMAP_SN
 from uegan_tpu_torch.models.generator import Generator
+from uegan_tpu_torch.train.schedules import make_lr_schedule, set_lr
+from uegan_tpu_torch.train.state import TrainState
+
+
+def make_train_step(state: TrainState) -> Callable[[torch.Tensor, torch.Tensor],
+                                                   Tuple[Dict, Dict]]:
+    """-> train_step(img_raw, img_exp) for (B, H, W, 3) float32 batches in
+    [-1, 1] on the state's device; it updates ``state`` in place and returns
+    (metrics, images): the five losses as 0-d device tensors under JAX's
+    names, and the fake, pool and identity images."""
+    cfg = state.config
+    if cfg.g_use_sn:
+        raise NotImplementedError(ROADMAP_SN)
+    if cfg.g_norm_fun != "none":
+        raise NotImplementedError(
+            f"--g_norm_fun {cfg.g_norm_fun}: train-mode normalization is not ported yet "
+            "(ROADMAP queue 1 item 3)")
+    g, d, vgg = state.g, state.d, state.vgg
+    mode = cfg.adv_loss_type
+    fuse_d = cfg.fused_d and cfg.d_norm_fun == "none"
+    g_params, d_params = list(g.parameters()), list(d.parameters())
+    g_lr = make_lr_schedule(cfg.g_lr, state.steps_per_epoch, cfg.lr_decay,
+                            cfg.lr_num_epochs_decay, cfg.lr_decay_ratio)
+    d_lr = make_lr_schedule(cfg.d_lr, state.steps_per_epoch, cfg.lr_decay,
+                            cfg.lr_num_epochs_decay, cfg.lr_decay_ratio)
+
+    def train_step(img_raw: torch.Tensor, img_exp: torch.Tensor):
+        b = img_raw.shape[0]
+        g.train()
+        d.train()
+        set_lr(state.g_opt, g_lr(state.step))
+        set_lr(state.d_opt, d_lr(state.step))
+
+        # 1. one G forward for the fake and the identity output
+        g_both = g(torch.cat([img_raw, img_exp], dim=0))
+        fake, idt_out = g_both[:b], g_both[b:]
+
+        # 2. the pool
+        store = state.pool.query(fake) if cfg.pool_size > 0 else fake.detach()
+
+        # 3. the D update
+        if fuse_d:
+            parts = [img_exp, store] + ([img_raw] if cfg.adv_input else [])
+            preds = d(torch.cat(parts, dim=0), sn_branches=len(parts))
+            real = [p[:b] for p in preds]
+            d_loss = multiscale_gan_loss(real, [p[b:2 * b] for p in preds], mode, True)
+            if cfg.adv_input:
+                d_loss = d_loss + multiscale_gan_loss(real, [p[2 * b:] for p in preds], mode,
+                                                      True)
+        else:
+            real = d(img_exp)
+            d_loss = multiscale_gan_loss(real, d(store), mode, True)
+            if cfg.adv_input:
+                d_loss = d_loss + multiscale_gan_loss(real, d(img_raw), mode, True)
+        state.d_opt.zero_grad(set_to_none=True)
+        d_loss.backward(inputs=d_params)
+        state.d_opt.step()
+
+        # 4. the G update against the updated D
+        if fuse_d and not cfg.split_g_adv:
+            preds = d(torch.cat([img_exp, fake], dim=0), sn_branches=2)
+            preds_real, preds_fake = [p[:b] for p in preds], [p[b:] for p in preds]
+        else:
+            with torch.no_grad():  # no path to G's parameters; u, v still advance
+                preds_real = d(img_exp)
+            preds_fake = d(fake)
+        adv = cfg.lambda_adv * multiscale_gan_loss(preds_real, preds_fake, mode, False)
+        percep = cfg.lambda_percep * perceptual_loss(
+            vgg, (fake + 1.0) / 2.0, (img_raw + 1.0) / 2.0, split_label=cfg.split_percep_label)
+        idt = cfg.lambda_idt * multiscale_rec_loss(idt_out, img_exp, cfg.idt_loss_type)
+        g_loss = adv + percep + idt
+        state.g_opt.zero_grad(set_to_none=True)
+        g_loss.backward(inputs=g_params)
+        state.g_opt.step()
+
+        # 5. EMA, decay min(d, (1 + t) / (10 + t)) at the step before this one
+        if state.g_ema is not None:
+            t = float(state.step)
+            keep = 1.0 - min(cfg.g_ema_decay, (1.0 + t) / (10.0 + t))
+            with torch.no_grad():
+                for name, p in g.named_parameters():
+                    e = state.g_ema[name]
+                    e.add_(p.detach().to(e.dtype) - e, alpha=keep)
+        state.step += 1
+        metrics = {"D/Total": d_loss.detach(), "G/Total": g_loss.detach(),
+                   "G/adv_loss": adv.detach(), "G/percep_loss": percep.detach(),
+                   "G/idt_loss": idt.detach()}
+        images = {"fake_exp": fake.detach(), "fake_exp_store": store,
+                  "real_exp_idt": idt_out.detach()}
+        return metrics, images
+
+    return train_step
 
 
 def make_eval_step(g: Generator) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -29,20 +29,11 @@ from uegan_tpu_torch.metrics.psnr import calc_psnr
 from uegan_tpu_torch.metrics.ssim import calc_ssim
 from uegan_tpu_torch.models.generator import Generator
 from uegan_tpu_torch.models.initializers import init_weights
+from uegan_tpu_torch.train.state import compute_dtype
 from uegan_tpu_torch.utils.checkpoint import find_checkpoint, generator_state, load_pth
 from uegan_tpu_torch.utils.image_io import (normalize_u8, quantize_u8, save_image,
                                             save_image_grid, to_uint8)
 from uegan_tpu_torch.utils.seed import setup_seed
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def compute_dtype(name: str) -> torch.dtype:
-    if name not in DTYPES:
-        raise NotImplementedError(
-            f"compute dtype [{name}]: the port's kernels take float32 and bfloat16")
-    return DTYPES[name]
-
 
 def _pad_batch(raw: np.ndarray, target_b: int) -> np.ndarray:
     b = raw.shape[0]

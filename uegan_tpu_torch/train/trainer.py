@@ -1,0 +1,287 @@
+"""Training engine, counterpart of uegan_tpu/train/trainer.py:Trainer.
+
+The epoch loop around ``train/step.py:make_train_step`` (reference flow
+trainer.py:39-146): the lr printed at each epoch's start, a loss line every
+``info_step`` steps, sample panels (raw | fake | exp) every ``sample_step``
+steps, the reference's seven-key ``.pth`` every ``model_save_epoch``
+epochs, validation every ``val_each_epochs`` after ``num_epochs_start_val``
+(the canonical eval forward, then PSNR/SSIM over the saved PNGs in the
+reference's disk/CSV protocol) with the best epochs written at the end.
+SIGTERM or SIGINT asks for a checkpoint at the next step and ends the loop;
+``--pretrained_model E`` (or -1, the newest) resumes from epoch E's
+``.pth``: weights, spectral-norm vectors and optimizer moments, at step
+E * steps_per_epoch.  The image pool starts empty on a resume, as the JAX
+package's ``.pth`` resume does.  The on-device PSNR/SSIM fast path of the
+JAX trainer is not ported (ROADMAP queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+import copy
+import datetime
+import os
+import signal
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from uegan_tpu_torch.config import Config
+from uegan_tpu_torch.metrics.psnr import calc_psnr
+from uegan_tpu_torch.metrics.ssim import calc_ssim
+from uegan_tpu_torch.models.vgg import load_vgg_weights
+from uegan_tpu_torch.train.schedules import make_lr_schedule
+from uegan_tpu_torch.train.state import count_params, create_train_state
+from uegan_tpu_torch.train.step import make_train_step
+from uegan_tpu_torch.utils.checkpoint import ckpt_name, find_checkpoint, load_pth, save_pth
+from uegan_tpu_torch.utils.image_io import normalize_u8, quantize_u8, save_image, save_image_grid
+
+
+def _denorm_np(x) -> np.ndarray:
+    return np.clip((np.asarray(x, dtype=np.float32) + 1.0) / 2.0, 0.0, 1.0)
+
+
+def _u8_01(x: np.ndarray) -> np.ndarray:
+    """A loader batch (uint8, or float in [-1, 1]) -> [0, 1] float32 or uint8 for PNGs."""
+    return x if x.dtype == np.uint8 else _denorm_np(x)
+
+
+def info_line(start: float, step: int, total_steps: int, losses: Dict[str, float]) -> str:
+    """The reference's loss line (trainer.py:174-177), as the JAX ProgressMeter prints it."""
+    elapsed = str(datetime.timedelta(seconds=time.time() - start))
+    parts = ", ".join(f"{k}:{v:>.4f}" for k, v in losses.items())
+    return f"Elapse:{elapsed:>.12s}, Step:{step + 1:>6d}/{total_steps}, {parts}"
+
+
+class Trainer:
+    def __init__(self, loaders, args: Config, device: torch.device):
+        self.loaders = loaders
+        self.args = args
+        self.device = torch.device(device)
+        root = os.path.join(args.save_root_dir, args.version)
+        self.model_save_path = os.path.join(root, args.model_save_path)
+        self.sample_path = os.path.join(root, args.sample_path)
+        self.val_result_path = os.path.join(root, args.val_result_path)
+        for p in (self.model_save_path, self.sample_path, self.val_result_path):
+            os.makedirs(p, exist_ok=True)
+        self.train_steps_per_epoch = max(1, len(loaders["ref"]))
+        self.model_save_step = max(1, int(args.model_save_epoch * self.train_steps_per_epoch))
+        self.build_model()
+        self.best_psnr_epoch, self.best_psnr = 0.0, 0.0
+        self.best_ssim_epoch, self.best_ssim = 0.0, 0.0
+        self.psnr_save_path = os.path.join(args.save_root_dir, "psnr_val_results")
+        self.ssim_save_path = os.path.join(args.save_root_dir, "ssim_val_results")
+        self.start_time = time.time()
+        self._stop_requested = False
+
+    # ------------------------------------------------------------------
+    def build_model(self) -> None:
+        args = self.args
+        vgg_state = None
+        if args.vgg_weights and os.path.exists(args.vgg_weights):
+            vgg_state = load_vgg_weights(args.vgg_weights)
+        self.state = create_train_state(args, self.device, (args.resize_size, args.resize_size),
+                                        self.train_steps_per_epoch, vgg_state)
+        if args.is_print_network:
+            for name, m in (("Generator", self.state.g), ("Discriminator", self.state.d)):
+                n = count_params(m)
+                print(f"=== The number of parameters of [{name}] is [{n}] or "
+                      f"[{n / 1e6:>.4f}M] ===")
+        if args.packed_train:
+            print("=== --packed_train: the port runs the canonical train step (the packed "
+                  "step is a TPU layout lever, equal math to float tolerance) ===")
+        self._step_fn = make_train_step(self.state)
+        spe = self.train_steps_per_epoch
+        self._g_lr = make_lr_schedule(args.g_lr, spe, args.lr_decay, args.lr_num_epochs_decay,
+                                      args.lr_decay_ratio)
+        self._d_lr = make_lr_schedule(args.d_lr, spe, args.lr_decay, args.lr_num_epochs_decay,
+                                      args.lr_decay_ratio)
+        print("=== Models have been created ===")
+
+    def eval_generator(self):
+        """G for validation and samples: a copy holding the EMA parameters when
+        one is kept and ``ema_eval`` is on, else the live G."""
+        if not (self.args.ema_eval and self.state.g_ema is not None):
+            return self.state.g
+        g = copy.deepcopy(self.state.g)
+        with torch.no_grad():
+            for name, p in g.named_parameters():
+                p.copy_(self.state.g_ema[name])
+        return g
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return normalize_u8(torch.from_numpy(np.ascontiguousarray(a)).to(self.device))
+
+    # ------------------------------------------------------------------
+    def train(self) -> Dict:
+        args = self.args
+        spe = self.train_steps_per_epoch
+        total_steps = int(args.total_epochs * spe)
+        self.val_start_steps = int(args.num_epochs_start_val * spe)
+        self.val_each_steps = max(1, int(args.val_each_epochs * spe))
+
+        resume_epoch = args.pretrained_model
+        if resume_epoch == -1:  # the newest checkpoint
+            resume_epoch = self.latest_epoch() or 0.0
+        start_step = 0
+        if resume_epoch:
+            start_step = int(resume_epoch * spe)
+            self.load_pretrained_model(resume_epoch)
+            self.state.step = start_step
+
+        def on_signal(signum, frame):
+            self._stop_requested = True
+            print(f"=== received signal {signum}: checkpointing at the next step boundary ===")
+
+        old_handlers = {}
+        try:  # handlers install only in the main thread
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                old_handlers[sig] = signal.signal(sig, on_signal)
+        except ValueError:
+            old_handlers = {}
+
+        print("======================= start training =======================")
+        it = None
+        last: Dict[str, float] = {}
+        try:
+            for step in range(start_step, total_steps):
+                if self._stop_requested:
+                    path = self.save_checkpoint(step / spe)
+                    print(f"=== preemption checkpoint saved: {path} "
+                          f"(resume with --pretrained_model -1) ===")
+                    break
+                if step % spe == 0:
+                    epoch = step // spe
+                    print(f"====== Epoch: {epoch:>3d}/{args.total_epochs}, "
+                          f"G lr: [{self._g_lr(step):.6g}], D lr: [{self._d_lr(step):.6g}] ======")
+                    it = None
+                if it is None:
+                    it = iter(self.loaders["ref"])
+                batch = next(it)
+                metrics, images = self._step_fn(self._to_device(batch["img_raw"]),
+                                                self._to_device(batch["img_exp"]))
+                last = self._post_step(step, total_steps, metrics, batch, images) or last
+        finally:
+            for sig, h in old_handlers.items():
+                signal.signal(sig, h)
+        self.val_best_results()
+        print("=========== Complete training ===========")
+        return {"steps": self.state.step, "last_losses": last}
+
+    def _post_step(self, step: int, total_steps: int, metrics, batch, images) -> Optional[Dict]:
+        args = self.args
+        spe = self.train_steps_per_epoch
+        current_epoch = (step + 1) / spe
+        losses = None
+        if (step + 1) % args.info_step == 0:
+            losses = {k: float(v) for k, v in metrics.items()}
+            print(info_line(self.start_time, step, total_steps, losses))
+        if (step + 1) % args.sample_step == 0:
+            raw01 = _u8_01(batch["img_raw"])
+            exp01 = _u8_01(batch["img_exp"])
+            fake = quantize_u8(images["fake_exp"]).cpu().numpy()
+            for i in range(fake.shape[0]):
+                name = batch["img_name"][i]
+                save_image_grid([raw01[i], fake[i], exp01[i]], os.path.join(
+                    self.sample_path,
+                    f"{name}_{current_epoch:0>3.2f}_{i:0>2d}_realRaw_fakeExp_realExp.png"))
+        if (step + 1) % self.model_save_step == 0:
+            self.save_checkpoint(current_epoch)
+            print(f"======= Save model checkpoints into {self.model_save_path} ======")
+        self.model_validation(step)
+        return losses
+
+    # ------------------------------------------------------------------
+    def model_validation(self, step: int) -> None:
+        args = self.args
+        if (step + 1) <= self.val_start_steps or (step + 1) % self.val_each_steps != 0:
+            return
+        current_epoch = (step + 1) / self.train_steps_per_epoch
+        val_save_path = os.path.join(self.val_result_path, f"validation_{current_epoch}")
+        val_compare_save_path = os.path.join(self.val_result_path,
+                                             f"validation_compare_{current_epoch}")
+        os.makedirs(val_save_path, exist_ok=True)
+        os.makedirs(val_compare_save_path, exist_ok=True)
+        print("==================== Start validation ====================")
+        g = self.eval_generator()
+        was_training = g.training
+        g.eval()
+        try:
+            for batch in self.loaders["val"]:
+                raw = np.asarray(batch["img_raw"])
+                with torch.inference_mode():
+                    out_u8 = quantize_u8(g(self._to_device(raw))).cpu().numpy()
+                raw_u8 = _u8_01(raw)
+                for i in range(out_u8.shape[0]):
+                    name = batch["img_name"][i]
+                    save_image(out_u8[i], os.path.join(
+                        val_save_path, f"{name}_{current_epoch:0>3.2f}_valFakeExp.png"))
+                    save_image_grid([raw_u8[i], out_u8[i]], os.path.join(
+                        val_compare_save_path,
+                        f"{name}_{current_epoch:0>3.2f}_valRealRaw_valFakeExp.png"))
+        finally:
+            g.train(was_training)
+        if args.is_test_psnr_ssim:
+            curr_p = calc_psnr(val_save_path, args.val_label_dir, self.psnr_save_path,
+                               current_epoch, legacy_average=args.legacy_metrics)
+            if self.best_psnr < curr_p:
+                self.best_psnr, self.best_psnr_epoch = curr_p, current_epoch
+            print(f"====== Avg. PSNR: {curr_p:>.4f} dB ======")
+            curr_s = calc_ssim(val_save_path, args.val_label_dir, self.ssim_save_path,
+                               current_epoch, legacy_average=args.legacy_metrics)
+            if self.best_ssim < curr_s:
+                self.best_ssim, self.best_ssim_epoch = curr_s, current_epoch
+            print(f"====== Avg. SSIM: {curr_s:>.4f}  ======")
+
+    def val_best_results(self) -> None:
+        if not self.args.is_test_psnr_ssim:
+            return
+        for path, csv, epoch, best in (
+                (self.psnr_save_path, "PSNR_total_results_epoch_avgpsnr.csv",
+                 self.best_psnr_epoch, self.best_psnr),
+                (self.ssim_save_path, "SSIM_total_results_epoch_avgssim.csv",
+                 self.best_ssim_epoch, self.best_ssim)):
+            os.makedirs(path, exist_ok=True)
+            with open(os.path.join(path, csv), "a+") as f:
+                f.write(f"Best epoch: {epoch},{round(best, 6)}\n")
+
+    # ------------------------------------------------------------------
+    def ckpt_path(self, epoch) -> str:
+        return os.path.join(self.model_save_path,
+                            ckpt_name(self.args.version, self.args.adv_loss_type, epoch) + ".pth")
+
+    def save_checkpoint(self, epoch) -> str:
+        """The reference's seven-key ``.pth``; the lr schedulers' entries hold
+        LambdaLR's state (the epoch and the base lrs)."""
+        s, args = self.state, self.args
+        last = int(s.step // self.train_steps_per_epoch)
+        return save_pth(self.ckpt_path(epoch), s.g.state_dict(), s.d.state_dict(), epoch,
+                        s.g_opt.state_dict(), s.d_opt.state_dict(),
+                        {"last_epoch": last, "base_lrs": [args.g_lr]},
+                        {"last_epoch": last, "base_lrs": [args.d_lr]})
+
+    def latest_epoch(self) -> Optional[float]:
+        prefix = f"{self.args.version}_{self.args.adv_loss_type}_"
+        epochs = []
+        for name in os.listdir(self.model_save_path):
+            if name.startswith(prefix) and name.endswith(".pth"):
+                try:
+                    epochs.append(float(name[len(prefix):-len(".pth")]))
+                except ValueError:
+                    continue
+        return max(epochs) if epochs else None
+
+    def load_pretrained_model(self, resume_epoch) -> None:
+        ckpt = load_pth(find_checkpoint(self.model_save_path, self.args, resume_epoch))
+        s = self.state
+        s.g.load_state_dict({k: v for k, v in ckpt["G_net"].items()
+                             if not k.endswith("num_batches_tracked")})
+        s.d.load_state_dict({k: v for k, v in ckpt["D_net"].items()
+                             if not k.endswith("num_batches_tracked")})
+        for opt, key in ((s.g_opt, "g_optimizer"), (s.d_opt, "d_optimizer")):
+            if ckpt.get(key):
+                opt.load_state_dict(ckpt[key])
+        if s.g_ema is not None:  # EMA over a checkpoint without one: start from its weights
+            s.g_ema = {k: v.detach().clone() for k, v in s.g.named_parameters()}
+        print(f"=========== loaded trained models (epochs: {resume_epoch})! ===========")

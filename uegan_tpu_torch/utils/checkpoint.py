@@ -1,10 +1,12 @@
-"""Reading the reference's checkpoints, counterpart of uegan_tpu/utils/checkpoint.py.
+"""The reference's checkpoints, counterpart of uegan_tpu/utils/checkpoint.py.
 
 A reference checkpoint is a seven-key ``.pth`` dict {G_net, D_net, epoch,
 g_optimizer, d_optimizer, lr_scheduler_g, lr_scheduler_d} named
 ``{version}_{adv_loss_type}_{epoch}.pth`` (reference trainer.py:186-208).
-The JAX package also writes orbax directories of the same stem; the port
-does not read those yet.  Writing checkpoints comes with the train slice.
+The port's trainer writes that dict (``save_pth``), which the port's Tester
+and the JAX Tester both read.  The JAX package writes orbax directories of
+the same stem instead; the port does not read those yet, and where both
+forms of one epoch exist it refuses to pick one (``find_checkpoint``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from uegan_tpu_torch.config import Config
 
 ROADMAP_ORBAX = ("orbax checkpoint directories are not read by the port; export the "
                  "weights to the reference .pth first (ROADMAP queue 1 item 4)")
+KEYS = ("G_net", "D_net", "epoch", "g_optimizer", "d_optimizer", "lr_scheduler_g",
+        "lr_scheduler_d")
 
 
 def ckpt_name(version: str, adv_loss_type: str, epoch) -> str:
@@ -39,10 +43,40 @@ def generator_state(ckpt: Dict) -> Dict[str, torch.Tensor]:
 
 
 def find_checkpoint(model_save_path: str, config: Config, epoch) -> str:
-    """Path of the ``.pth`` for ``epoch``; raises if there is none."""
+    """Path of the ``.pth`` for ``epoch``; raises if there is none, and if an
+    orbax directory of the same stem exists beside it: the JAX Tester reads
+    the directory, so the two packages would enhance with different weights."""
     stem = os.path.join(model_save_path, ckpt_name(config.version, config.adv_loss_type, epoch))
-    if os.path.exists(stem + ".pth"):
+    pth, orbax = os.path.exists(stem + ".pth"), os.path.isdir(stem)
+    if pth and orbax:
+        raise RuntimeError(
+            f"{stem}.pth and the orbax directory {stem} both exist: the JAX Tester reads the "
+            "directory and the port the .pth, so which weights enhance would depend on the "
+            "package; move one away (the orbax export is ROADMAP queue 1 item 4)")
+    if pth:
         return stem + ".pth"
-    if os.path.isdir(stem):
+    if orbax:
         raise NotImplementedError(f"{stem}: {ROADMAP_ORBAX}")
     raise FileNotFoundError(f"no checkpoint for epoch {epoch}: {stem}[.pth]")
+
+
+def _cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu(v) for v in tree)
+    return tree
+
+
+def save_pth(path: str, g_state: Dict, d_state: Dict, epoch: float, g_optimizer: Dict,
+             d_optimizer: Dict, lr_scheduler_g: Dict, lr_scheduler_d: Dict) -> str:
+    """Write the reference's seven-key dict to ``path`` (tensors on the CPU),
+    through a temporary file, so that a reader never sees half a checkpoint."""
+    ckpt = dict(zip(KEYS, (g_state, d_state, float(epoch), g_optimizer, d_optimizer,
+                           lr_scheduler_g, lr_scheduler_d)))
+    tmp = path + ".tmp"
+    torch.save(_cpu(ckpt), tmp)
+    os.replace(tmp, path)
+    return path
