@@ -12,9 +12,9 @@ run with a non-zero exit on failure:
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
 2. build: nvcc for sm_90a, with the seconds it took, and from ptxas's -v
    report (kept beside the library, so a cached build has it too) one line
-   a kernel of E's, F's, A's and C's (and D's) sources: registers, spills
-   and shared memory; it fails where the report names no tensor-core
-   kernel of E or F, or no kernel of A or C;
+   a kernel of the sources of E, F, A, A', B' and C (and D, which shares
+   C's): registers, spills and shared memory; it fails where the report
+   names no tensor-core kernel of E or F, or no kernel of A, A', B' or C;
 3. kernels vs plain: gam_stats (A) and upsample2x (B) against their plain
    PyTorch versions run in float64 and rounded, at the shapes the 512 px
    canonical forward gives them (batch 4), in float32 and bfloat16, and at
@@ -38,9 +38,12 @@ run with a non-zero exit on failure:
    case, ragged ones and the same tile edges, with A's and B's tolerances.
    The backward kernels gam_stats_bwd (A') and upsample2x_bwd (B') against
    their plain versions run in float64, at every shape the 256 px train step
-   (batch 10, 20 images through G) gives them and at ragged ones (one pixel,
-   constant channels, H or W of one), float32 and bfloat16, with A's and B's
-   tolerances; each autograd Function's gradient against central
+   (batch 10, 20 images through G) gives them and at the edges of their
+   tiles (GAM_BWD_EDGES, UP_BWD_EDGES: one pixel, constant channels, H or W
+   of one, H and W not a multiple of the tile, C = 3, 6, 12 and 520, an
+   input one element past 16 bytes, more tiles than a wave, and B' on a
+   small wave whose blocks walk several tiles), float32 and bfloat16, with
+   A's and B's tolerances; each autograd Function's gradient against central
    differences of its plain forward in float64; C, D, E and F refusing
    inputs that require grad; A on two streams at once bit-equal to serial
    calls, every stream's tickets back at zero;
@@ -138,6 +141,26 @@ TRAIN_B = 10
 TRAIN_B2 = 2 * TRAIN_B
 TRAIN_GAM_SHAPES = [(TRAIN_HW >> s, 32 << s) for s in range(5)]  # (H = W, C) at ga1 .. ga5
 TRAIN_UP_SHAPES = [(TRAIN_HW >> s, 32 << s) for s in range(4, 0, -1)]  # inputs of upsample1 .. 4
+# A' beyond the train shapes: one pixel, constant channels, C = 3, 12, 520
+# (narrow words, a ragged channel tile), pixels not a multiple of the
+# plan's rows and chunks, and x or dmean one element past 16 bytes
+GAM_BWD_EDGES = [((2, 12, 10, 3), False, None), ((2, 1, 1, 5), False, None),
+                 ((1, 16, 16, 8), True, None), ((2, 7, 3, 16), True, None),
+                 ((2, 9, 11, 12), False, None), ((2, 6, 7, 520), False, None),
+                 ((3, 1, 1, 520), False, None), ((3, 37, 41, 64), False, None),
+                 ((2, 16, 16, 32), False, "x"), ((2, 16, 16, 32), False, "dmean")]
+# B' beyond the train shapes (dx shapes): H and W not a multiple of the tile
+# (rows ragged too at batch 20), H = 1, W = 1, C = 3, 6, 12 and 520 (2-, 4-
+# and 8-byte words, a ragged channel tile), more tiles than a wave, dy one
+# element past 16 bytes, and a wave of 2 blocks that walk 3 tiles of the
+# most rows a tile takes, the last one ragged
+UP_BWD_EDGES = [((2, 12, 10, 3), False, None), ((1, 1, 5, 2), False, None),
+                ((2, 3, 1, 4), False, None), ((2, 13, 37, 64), False, None),
+                ((20, 37, 45, 64), False, None), ((1, 1, 9, 16), False, None),
+                ((2, 7, 1, 16), False, None), ((2, 5, 6, 3), False, None),
+                ((2, 5, 6, 6), False, None), ((1, 9, 17, 12), False, None),
+                ((2, 3, 20, 520), False, None), ((8, 6, 300, 512), False, None),
+                ((2, 6, 10, 16), True, None), ((2, 150, 20, 16), False, 2)]
 INT8_PEAK_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
 BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 CD = 32
@@ -239,9 +262,10 @@ def kernel_name(mangled: str) -> str:
 
 
 def ptxas_summary(report: dict, tc_smem: int) -> list:
-    """One line a kernel of E's, F's, A's and C's sources (and D's, which
-    shares C's) from ptxas's -v report: registers, spills and static shared
-    memory (the tensor-core body's and C's are dynamic)."""
+    """One line a kernel of the sources of E, F, A, A', B' and C (D and B
+    share the sources of C and B') from ptxas's -v report: registers,
+    spills and static shared memory (the tensor-core body's and C's are
+    dynamic)."""
     out = []
     for src in PTXAS_SOURCES:
         name, spill = None, "?"
@@ -303,6 +327,14 @@ def bits_equal(got, want) -> bool:
     nan_g, nan_w = torch.isnan(got), torch.isnan(want)
     same = got.view(as_int) == want.view(as_int)
     return bool(torch.equal(nan_g, nan_w) and (same | nan_g).all())
+
+
+def one_past(t):
+    """A contiguous copy of t that starts one element past a 16-byte boundary."""
+    import torch
+
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -523,8 +555,8 @@ def phase_kernels(dev) -> dict:
         kern, plain = run[what]
         for dtype in (torch.float32, torch.bfloat16):
             x = (torch.randn(shape, generator=gen, device=dev) * 2 + 1).to(dtype)
-            if what.endswith("misaligned"):  # contiguous, one element past 16 bytes
-                x = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:].view(shape).copy_(x)
+            if what.endswith("misaligned"):
+                x = one_past(x)
             got = kern(x)
             if name == "gam_stats":
                 again = kern(x)
@@ -725,18 +757,22 @@ def phase_backward_kernels(dev) -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     worst = {"gam_stats_bwd": 0.0, "upsample2x_bwd": 0.0}
     randn = lambda shape: torch.randn(shape, generator=gen, device=dev)
-    for shape, const in [((TRAIN_B2, h, h, c), False) for h, c in TRAIN_GAM_SHAPES] + [
-            ((2, 12, 10, 3), False), ((2, 1, 1, 5), False), ((1, 16, 16, 8), True),
-            ((2, 7, 3, 16), True)]:
+    # (shape, a constant channel, which input lies one element past 16 bytes)
+    for shape, const, shifted in [((TRAIN_B2, h, h, c), False, None)
+                                  for h, c in TRAIN_GAM_SHAPES] + GAM_BWD_EDGES:
         n, _, _, c = shape
         for dtype in (f32, bf16):
             x = randn(shape) * 2 + 1
             if const:
                 x[..., 0] = 0.3
             x = x.to(dtype)
+            if shifted == "x":
+                x = one_past(x)
             mean, std, m32, v32 = gam_stats._launch(x, 1e-5, keep32=True)
             m0, s0 = gam_stats.gam_mean_std(x)
             dm, ds = randn((n, 1, 1, c)).to(dtype), randn((n, 1, 1, c)).to(dtype)
+            if shifted == "dmean":
+                dm = one_past(dm)
             got = gam_stats.gam_mean_std_backward(x, m32, v32, dm, ds)
             want = gam_stats.plain_backward(x.double(), m32.double(), v32.double(), dm.double(),
                                             ds.double()).to(dtype)
@@ -745,7 +781,9 @@ def phase_backward_kernels(dev) -> dict:
                 std.view(torch.uint8), s0.view(torch.uint8))
             err, rel, ok = compare(got, want, dtype)
             tag = "f32" if dtype == f32 else "bf16"
-            log("3 kernels", f"gam_stats_bwd {shape}{' constant channel' if const else ''} {tag}: "
+            edge = ((" constant channel" if const else "")
+                    + (f" {shifted} shifted" if shifted else ""))
+            log("3 kernels", f"gam_stats_bwd {shape}{edge} {tag}: "
                              f"max abs {err:.3e} max rel {rel:.3e} "
                              f"{'ok' if ok else 'OUT OF TOLERANCE'} (plain in f64); A's mean and "
                              f"std with the f32 outputs {'bit-equal' if same else 'DIFFER'}")
@@ -753,16 +791,24 @@ def phase_backward_kernels(dev) -> dict:
                 raise AssertionError(f"gam_stats_bwd {shape} {tag} disagrees with its plain version")
             if dtype == f32:
                 worst["gam_stats_bwd"] = max(worst["gam_stats_bwd"], err)
-    for n, h, w, c in [(TRAIN_B2, h, h, c) for h, c in TRAIN_UP_SHAPES] + [
-            (2, 12, 10, 3), (1, 1, 5, 2), (2, 3, 1, 4)]:
+    # (dx shape, dy one element past 16 bytes, the plan's wave where not one
+    # of the card's)
+    for (n, h, w, c), shifted, wave in [((TRAIN_B2, h, h, c), False, None)
+                                        for h, c in TRAIN_UP_SHAPES] + UP_BWD_EDGES:
         for dtype in (f32, bf16):
             dy = randn((n, 2 * h, 2 * w, c)).to(dtype)
-            got = resize2x.upsample2x_backward(dy)
+            if shifted:
+                dy = one_past(dy)
+            plan = resize2x.backward_plan(n, h, w, c, dy.element_size(), dy.data_ptr() % 16,
+                                          **({} if wave is None else {"wave": wave}))
+            got = (resize2x.upsample2x_backward(dy) if wave is None
+                   else resize2x._launch_backward(dy, plan))
             want = resize2x.plain_backward(dy.double()).to(dtype)
             torch.cuda.synchronize()
             err, rel, ok = compare(got, want, dtype)
             tag = "f32" if dtype == f32 else "bf16"
-            log("3 kernels", f"upsample2x_bwd dy {(n, 2 * h, 2 * w, c)} {tag}: max abs {err:.3e} "
+            log("3 kernels", f"upsample2x_bwd dy {(n, 2 * h, 2 * w, c)}"
+                             f"{' shifted' if shifted else ''} {tag}, {plan}: max abs {err:.3e} "
                              f"max rel {rel:.3e} {'ok' if ok else 'OUT OF TOLERANCE'} "
                              f"(plain in f64)")
             if not ok:
@@ -1113,6 +1159,21 @@ def train_batches(dev, k: int) -> list:
              torch.rand(shape, generator=gen, device=dev) * 2 - 1) for _ in range(k)]
 
 
+def train_step_ms(step, batches: list, k: int = 5) -> float:
+    """ms per train step: host clock around k steps on the batches in turn,
+    after 2 of warm-up, each end synchronized."""
+    import torch
+
+    for b in batches[:2]:
+        step(*b)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(k):
+        step(*batches[i % len(batches)])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / k * 1e3
+
+
 def phase_train(dev, card: str, tmp: str) -> dict:
     """The train slice at full width (cd 32, dd 32, 256 px crops of 512,
     batch 10, rahinge with adv_input, spectral norm in D, fused D phases,
@@ -1268,20 +1329,10 @@ def phase_train(dev, card: str, tmp: str) -> dict:
         raise AssertionError(f"bf16 train steps: finite {finite}, moved {moved}")
 
     # time: kernels, plain, plain, kernels (5 steps each, after 2 of warm-up)
-    def step_ms(k: int = 5) -> float:
-        for b in batches[:2]:
-            step(*b)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for i in range(k):
-            step(*batches[i % 3])
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) / k * 1e3
-
     times = {"kernels": [], "plain": []}
     for which in ("kernels", "plain", "plain", "kernels"):
         with plain_versions() if which == "plain" else contextlib.nullcontext():
-            times[which].append(step_ms())
+            times[which].append(train_step_ms(step, batches))
     ms = {k: sum(v) / len(v) for k, v in times.items()}
     torch.cuda.reset_peak_memory_stats()
     step(*batches[0])
@@ -1465,6 +1516,11 @@ def timing_backward(dev, card: str, gen, three, add, us) -> None:
 
     from uegan_tpu_torch.ops import gam_stats, resize2x
 
+    def rate(t, moved):
+        """A call's bound and the rate its device-only time moves its bytes at."""
+        return (f"bound {moved / HBM_BYTES_PER_S * 1e6:.2f} us, "
+                f"{moved / (t['device']['kernel'] * 1e-3) / 1e12:.2f} TB/s device-only")
+
     n = TRAIN_B2
     for h, c in TRAIN_GAM_SHAPES:
         nbytes = n * h * h * c * 2
@@ -1488,11 +1544,12 @@ def timing_backward(dev, card: str, gen, three, add, us) -> None:
             ring)
         t["eager"]["library"], t["device"]["library"] = cuda_ms(lib, 20), profiler_ms(lib, 20)
         DEVICE_METHODS.add("profiler")
-        add("gam_stats_bwd", t, 2 * nbytes + 4 * n * c * 2 + 2 * n * c * 4)
+        moved = 2 * nbytes + 4 * n * c * 2 + 2 * n * c * 4
+        add("gam_stats_bwd", t, moved)
         log("7 timing", f"gam_stats_bwd ({n},{h},{h},{c}) bf16, ring of {ring} ("
                         f"{ring * nbytes / 1e6:.0f} MB): kernel {us(t, 'kernel')}, plain "
                         f"{us(t, 'plain')}, autograd of torch.var_mean {us(t, 'library')} per "
-                        f"call [{card}]")
+                        f"call; {rate(t, moved)} [{card}]")
         del sets
     for h, c in TRAIN_UP_SHAPES:
         nbytes = n * 4 * h * h * c * 2  # dy
@@ -1508,7 +1565,7 @@ def timing_backward(dev, card: str, gen, three, add, us) -> None:
         log("7 timing", f"upsample2x_bwd dy ({n},{2 * h},{2 * h},{c}) bf16, ring of {ring} ("
                         f"{ring * nbytes / 1e6:.0f} MB): kernel {us(t, 'kernel')}, plain "
                         f"{us(t, 'plain')}, aten.upsample_bilinear2d_backward "
-                        f"{us(t, 'library')} per call [{card}]")
+                        f"{us(t, 'library')} per call; {rate(t, nbytes + nbytes // 4)} [{card}]")
         del dys
 
 

@@ -23,7 +23,7 @@ from uegan_tpu.ops.resize import upsample2x_align_corners as jax_upsample2x
 from uegan_tpu_torch.convert.from_flax import generator_state_dict
 from uegan_tpu_torch.models.generator import Generator
 from uegan_tpu_torch.models.initializers import fan_in_normal_state
-from uegan_tpu_torch.ops import gam_stats
+from uegan_tpu_torch.ops import gam_stats, resize2x
 from uegan_tpu_torch.ops.gam_stats import gam_mean_std
 from uegan_tpu_torch.ops.resize2x import upsample2x
 
@@ -107,9 +107,11 @@ def _emulate_gam(x: np.ndarray, p) -> tuple:
 
 
 # the five GAM sites of the 512 px canonical forward at B=8, a batch of one
-# at 512 px, and ragged shapes
+# at 512 px, ragged shapes, and the five GAM sites of the 256 px train step
+# (batch 10, so 20 images through G), whose backward A' takes the same plan
 GAM_PLAN_SHAPES = [(8, 512 >> s, 512 >> s, 32 << s) for s in range(5)]
 GAM_PLAN_SHAPES += [(1, 512, 512, 32), (2, 12, 10, 3), (1, 1, 1, 5)]
+GAM_PLAN_SHAPES += [(20, 256 >> s, 256 >> s, 32 << s) for s in range(5)]
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
@@ -156,6 +158,117 @@ def test_gam_kernel_emulation_matches_plain(shape, itemsize, address):
     np.testing.assert_allclose(mean, want_mean.numpy().reshape(mean.shape), rtol=1e-12,
                                atol=1e-12)
     np.testing.assert_allclose(std, want_std.numpy().reshape(std.shape), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("offset", [None, 0, 1, 2, 3])
+def test_gam_backward_plan_takes_every_pointer_alignment(offset):
+    """A' runs on A's plan with the word width that all four x-dtype
+    pointers allow: x, dx, dmean or dstd one element past a 16-byte boundary
+    (``offset`` names which) drops it to one channel, and every pointer is
+    aligned to the word the plan picks."""
+    n, h, w, c = 20, 16, 16, 512  # the train step's ga5 site
+
+    def tensor(shape, shifted):
+        t = torch.empty(int(np.prod(shape)) + 1, dtype=torch.bfloat16)
+        return (t[1:] if shifted else t[:-1]).view(shape)
+
+    x, dx = tensor((n, h, w, c), offset == 0), tensor((n, h, w, c), offset == 1)
+    dm, ds = tensor((n, 1, 1, c), offset == 2), tensor((n, 1, 1, c), offset == 3)
+    p = gam_stats.backward_plan(x, dx, dm, ds)
+    assert p == gam_stats.split_plan(n, h * w, c, 2, 0 if offset is None else 2)
+    assert p.vec == (8 if offset is None else 1)
+    assert c % p.vec == 0 and all(t.data_ptr() % (2 * p.vec) == 0 for t in (x, dx, dm, ds))
+
+
+def _emulate_upsample_bwd(dy: np.ndarray, p) -> tuple:
+    """Kernel B' as its blocks run, in float64: block b walks tiles b, b +
+    grid, ...; each tile stages dy rows 2 i0 - 1 .. 2 (i0 + rows) (those in
+    the map) and columns 2 j0 - 1 .. 2 (j0 + cols) (those in the map; the
+    rest of the stage holds NaN, as unwritten shared memory holds anything),
+    works out each column's horizontal sum over its nonzero-weight taps,
+    adds it to input rows lo and lo + 1 and stores row lo once it has all
+    its terms.  (dx, how many times each element was written)."""
+    n, h2, w2, c = dy.shape
+    h, w = h2 // 2, w2 // 2
+    mh, mw = resize2x.adjoint_matrix(h), resize2x.adjoint_matrix(w)
+
+    def weight(m, i, s):  # the kernel's adjoint_weight, from the f64 matrix
+        o = 2 * i + s - 1
+        return m[o, i] if 0 <= i < m.shape[1] and 0 <= o < m.shape[0] else 0.0
+
+    dx = np.full((n, h, w, c), np.nan)
+    writes = np.zeros((n, h, w, c), np.int64)
+    steps = 2 * p.rows + 2
+    words = c // p.vec
+    j = np.arange(p.cols)
+    walked = []
+    for b in range(p.grid):
+        for t in range(b, p.tiles, p.grid):
+            walked.append(t)
+            ct, chunk = t % p.ctiles, t // p.ctiles % p.chunks
+            strip = t // (p.ctiles * p.chunks) % p.strips
+            img = t // (p.ctiles * p.chunks * p.strips)
+            i0, i1, j0 = chunk * p.rows, min(chunk * p.rows + p.rows, h), strip * p.cols
+            c0, c1 = ct * p.groups * p.vec, min((ct * p.groups + p.groups) * p.vec, words * p.vec)
+            act = j0 + j < w
+            cw = np.array([[weight(mw, j0 + jj, q) for q in range(4)] for jj in j])
+            staged = 2 * j0 - 1 + np.arange(2 * p.cols + 2)
+            ok = (staged >= 0) & (staged < w2)
+            acc_lo = acc_hi = np.zeros((p.cols, c1 - c0))
+            for cl in range(steps):
+                if cl and cl % 2 == 0:
+                    acc_lo, acc_hi = acc_hi, np.zeros_like(acc_hi)
+                r, lo = 2 * i0 - 1 + cl, i0 - 1 + cl // 2
+                if not 0 <= r <= min(2 * i1, 2 * h - 1):
+                    continue
+                stage = np.full((2 * p.cols + 2, c1 - c0), np.nan)
+                stage[ok] = dy[img, r, staged[ok], c0:c1]
+                hsum = np.zeros((p.cols, c1 - c0))
+                for q in range(4):
+                    taps = cw[:, q] != 0
+                    hsum = np.where(taps[:, None], hsum + cw[:, q, None] * stage[2 * j + q], hsum)
+                if lo >= i0:
+                    acc_lo = acc_lo + weight(mh, i0 - 1 + cl // 2, 2 + cl % 2) * hsum
+                    if cl % 2 or r == 2 * h - 1:
+                        dx[img, lo, j0 + j[act], c0:c1] = acc_lo[act]
+                        writes[img, lo, j0 + j[act], c0:c1] += 1
+                if lo + 1 < i1:
+                    acc_hi = acc_hi + weight(mh, i0 + cl // 2, cl % 2) * hsum
+    assert sorted(walked) == list(range(p.tiles))
+    return dx, writes
+
+
+# dx shapes: the four upsample inputs of a cd-8, 32 px train step (batch 2,
+# so 4 images through G; (2, 2, 2, 128) ... (2, 16, 16, 16)); H and W not a
+# multiple of the tile; H = 1; W = 1; C = 3, 12 and 520; dy one element
+# past a 16-byte boundary (narrow words); and a small wave, so that a block
+# walks several tiles of the most rows a tile takes, the last one ragged
+UP_BWD_CASES = [((4, 32 >> s, 32 >> s, 8 << s), 0, None) for s in range(4, 0, -1)]
+UP_BWD_CASES += [((2, 13, 37, 64), 0, None), ((1, 1, 9, 16), 0, None), ((2, 7, 1, 16), 0, None),
+                 ((2, 5, 6, 3), 0, None), ((1, 9, 17, 12), 0, None), ((2, 3, 20, 520), 0, None),
+                 ((2, 6, 10, 16), 1, None), ((2, 150, 20, 16), 0, 2)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape,shifted,wave", UP_BWD_CASES)
+def test_upsample_bwd_tiling_matches_plain(shape, shifted, wave, itemsize):
+    """The tiling of B' (backward_plan and the kernel's staging, horizontal then
+    vertical sums and stores, mirrored in numpy) reproduces plain_backward
+    in float64, and writes every dx element exactly once."""
+    n, h, w, c = shape
+    address = shifted * itemsize
+    p = resize2x.backward_plan(n, h, w, c, itemsize, address,
+                               **({} if wave is None else {"wave": wave}))
+    assert c % p.vec == 0 and p.vec * itemsize <= 16 and (address % (p.vec * itemsize) == 0)
+    assert p.groups <= resize2x.BWD_MAX_GROUPS and p.cols * p.groups <= resize2x.BWD_THREADS
+    assert 1 <= p.rows <= resize2x.BWD_MAX_ROWS and p.grid <= (wave or resize2x.BWD_WAVE)
+    if c * itemsize % 16 == 0 and not address:
+        assert p.vec * itemsize == 16
+    dy = np.random.default_rng(12).normal(size=(n, 2 * h, 2 * w, c))
+    got, writes = _emulate_upsample_bwd(dy, p)
+    assert np.array_equal(writes, np.ones_like(writes))
+    want = resize2x.plain_backward(torch.from_numpy(dy)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 8, 4), (1, 16, 8, 4), (2, 12, 10, 3), (1, 1, 5, 2)])

@@ -39,13 +39,15 @@ _SIGNATURES = {
     # eps, stream
     "uegan_gam_stats": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _I64, _I64, _I64, ctypes.c_int,
                         _I64, _I64, _I64, ctypes.c_float, _P],
-    # x, dmean, dstd, mean32, var32, dx, dtype, n, hw, c, vec, eps, stream
+    # x, dmean, dstd, mean32, var32, dx, dtype, n, hw, c, vec, groups, splits, chunk, eps,
+    # stream
     "uegan_gam_stats_bwd": [_P, _P, _P, _P, _P, _P, ctypes.c_int, _I64, _I64, _I64, ctypes.c_int,
-                            ctypes.c_float, _P],
+                            _I64, _I64, _I64, ctypes.c_float, _P],
     # x, out, dtype, n, h, w, c, vec, stream
     "uegan_upsample2x": [_P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, ctypes.c_int, _P],
-    # dy, dx, dtype, n, h, w, c (of dx), vec, stream
-    "uegan_upsample2x_bwd": [_P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, ctypes.c_int, _P],
+    # dy, dx, dtype, n, h, w, c (of dx), vec, groups, rows, grid, stream
+    "uegan_upsample2x_bwd": [_P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_int, _I64, _P],
     # x, out, in dtype, out dtype, n, h, w, c, pairs, in_word, out_word, in_span, smem, stream
     "uegan_s2d_convert": [_P, _P, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64, _I64, _I64,
                           ctypes.c_int, ctypes.c_int, _I64, _I64, _P],

@@ -7,9 +7,9 @@ cannot; for a CPU tensor it runs ``plain``, the PyTorch version of the same
 function, whose autograd is the CPU gradient.  Where autograd needs the
 gradient of a CUDA call, the call is a ``torch.autograd.Function``: its
 forward launches the kernel, which then also writes the f32 mean and var,
-and its backward launches ``gam_mean_std_backward`` (csrc/gam_stats_bwd.cu),
-whose plain version is ``plain_backward``.  ``<wrapper>.launches`` counts
-kernel launches.
+and its backward launches ``gam_mean_std_backward`` (csrc/gam_stats_bwd.cu,
+on A's partition), whose plain version is ``plain_backward``.
+``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -176,13 +176,16 @@ def plain_backward(x: torch.Tensor, mean32: torch.Tensor, var32: torch.Tensor,
     return (a + b * (x.to(acc) - mean32.to(acc))).to(x.dtype)
 
 
-def _backward_vec(c: int, itemsize: int, tensors) -> int:
-    """Channels a thread of A' takes as one word: load_width for every
-    x-dtype pointer at once (the f32 vectors are read a channel at a time)."""
+def backward_plan(x: torch.Tensor, dx: torch.Tensor, dmean: torch.Tensor,
+                  dstd: torch.Tensor) -> Plan:
+    """A's launch plan, which A' takes too, with the word width that every
+    x-dtype pointer allows at once (the f32 vectors are read a channel at a
+    time): ``split_plan`` at the or of their residues mod 16."""
+    n, h, w, c = x.shape
     address = 0
-    for t in tensors:
+    for t in (x, dx, dmean, dstd):
         address |= t.data_ptr() % 16
-    return load_width(c, itemsize, address)
+    return split_plan(n, h * w, c, x.element_size(), address)
 
 
 def gam_mean_std_backward(x: torch.Tensor, mean32: torch.Tensor, var32: torch.Tensor,
@@ -203,17 +206,17 @@ def gam_mean_std_backward(x: torch.Tensor, mean32: torch.Tensor, var32: torch.Te
         if t.dtype != torch.float32 or t.shape != (n, 1, 1, c) or not t.is_contiguous():
             raise ValueError(f"gam_mean_std_backward: {name} must be contiguous float32 "
                              f"({n}, 1, 1, {c}), got {t.dtype} {tuple(t.shape)}")
-    if x.numel() >= 2 ** 31:
+    if x.numel() >= 2 ** 31 or n > 65535:
         raise ValueError(f"gam_mean_std_backward: shape {tuple(x.shape)} has 2^31 elements "
-                         "or more")
+                         "or more, or a batch over the grid's 65535")
     lib = _build.load()
     with torch.cuda.device(x.device):
         dx = torch.empty_like(x)
-        vec = _backward_vec(c, x.element_size(), (x, dx, dmean, dstd))
+        p = backward_plan(x, dx, dmean, dstd)
         err = lib.uegan_gam_stats_bwd(
             x.data_ptr(), dmean.data_ptr(), dstd.data_ptr(), mean32.data_ptr(),
-            var32.data_ptr(), dx.data_ptr(), _build.dtype_code(x), n, h * w, c, vec, eps,
-            torch.cuda.current_stream().cuda_stream,
+            var32.data_ptr(), dx.data_ptr(), _build.dtype_code(x), n, h * w, c, p.vec, p.groups,
+            p.splits, p.chunk, eps, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "gam_mean_std_backward")
     gam_mean_std_backward.launches += 1

@@ -7,22 +7,32 @@ cannot; for a CPU tensor it runs ``plain``, the PyTorch version of the same
 function, whose autograd is the CPU gradient.  Where autograd needs the
 gradient of a CUDA call, the call is a ``torch.autograd.Function``: its
 forward launches the kernel and its backward launches
-``upsample2x_backward`` (B', the adjoint as a gather, in the same source),
-whose plain version is ``plain_backward``.  ``<wrapper>.launches`` counts
-kernel launches.
+``upsample2x_backward`` (B', the adjoint, in the same source; its tiles
+come from ``backward_plan``), whose plain version is ``plain_backward``.
+``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from uegan_tpu_torch.ops import _build
+from uegan_tpu_torch.ops.gam_stats import load_width
 from uegan_tpu_torch.ops.resize import upsample2x_align_corners as plain
 
 _GRID_YZ_MAX = 65535  # CUDA's limit on gridDim.y (output rows) and gridDim.z (batch)
+
+# as in the .cu file for B': threads a block, words across C a tile covers
+# at most, input rows a tile covers at most
+BWD_THREADS = 128
+BWD_MAX_GROUPS = 8
+BWD_MAX_ROWS = 64
+# one wave of B' blocks: 6 an SM on the card's 132 SMs
+BWD_WAVE = 6 * 132
 
 
 def vector_width(x: torch.Tensor, out: torch.Tensor) -> int:
@@ -107,6 +117,62 @@ def plain_backward(dy: torch.Tensor) -> torch.Tensor:
     return torch.einsum("pw,nhpc->nhwc", mw, t).to(dy.dtype)
 
 
+class BackwardPlan(NamedTuple):
+    """The partition of dx (N, H, W, C) that B' takes: a word is ``vec``
+    channels; a tile covers ``groups`` words across C (``ctiles`` tiles),
+    ``cols`` input columns (``strips`` across W) and ``rows`` input rows
+    (``chunks`` down H), one thread a (column, word); ``tiles`` tiles in
+    all, walked by ``grid`` blocks."""
+    vec: int
+    groups: int
+    cols: int
+    ctiles: int
+    strips: int
+    rows: int
+    chunks: int
+    tiles: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=None)
+def backward_plan(n: int, h: int, w: int, c: int, itemsize: int, address: int = 0,
+                  wave: int = BWD_WAVE) -> BackwardPlan:
+    """The launch plan of B' for dx (n, h, w, c) with dy's and dx's pointers
+    at ``address`` (their residues mod 16, or-ed): the widest word that C
+    and the pointers allow; as many chunks of rows as keep the tiles within
+    one ``wave`` of blocks (so that all run at once and none is left to run
+    alone), at most BWD_MAX_ROWS rows a tile; more tiles than a wave only
+    where one chunk an image already gives more."""
+    vec = load_width(c, itemsize, address)
+    words = c // vec
+    ctiles = -(-words // BWD_MAX_GROUPS)
+    groups = -(-words // ctiles)
+    cols = BWD_THREADS // groups
+    strips = -(-w // cols)
+    base = n * ctiles * strips
+    chunks = max(1, min(h, wave // base))
+    rows = min(-(-h // chunks), BWD_MAX_ROWS)
+    chunks = -(-h // rows)
+    tiles = base * chunks
+    return BackwardPlan(vec, groups, cols, ctiles, strips, rows, chunks, tiles, min(tiles, wave))
+
+
+def _launch_backward(dy: torch.Tensor, plan: BackwardPlan) -> torch.Tensor:
+    n, h2, w2, c = dy.shape
+    if plan.tiles >= 2 ** 31:
+        raise ValueError(f"upsample2x_backward: shape {tuple(dy.shape)} exceeds the grid")
+    lib = _build.load()
+    with torch.cuda.device(dy.device):
+        dx = torch.empty((n, h2 // 2, w2 // 2, c), dtype=dy.dtype, device=dy.device)
+        err = lib.uegan_upsample2x_bwd(
+            dy.data_ptr(), dx.data_ptr(), _build.dtype_code(dy), n, h2 // 2, w2 // 2, c,
+            plan.vec, plan.groups, plan.rows, plan.grid, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, err, "upsample2x_backward")
+    upsample2x_backward.launches += 1
+    return dx
+
+
 def upsample2x_backward(dy: torch.Tensor) -> torch.Tensor:
     """Kernel B': the gradient of ``upsample2x`` given dy (N, 2H, 2W, C),
     float32 or bfloat16 -> dx (N, H, W, C) in dy.dtype, f32 sums.  A CPU
@@ -118,19 +184,9 @@ def upsample2x_backward(dy: torch.Tensor) -> torch.Tensor:
     if dy.device.type == "cpu":
         return plain_backward(dy)
     n, h2, w2, c = dy.shape
-    h, w = h2 // 2, w2 // 2
-    if n > _GRID_YZ_MAX or h > _GRID_YZ_MAX:
-        raise ValueError(f"upsample2x_backward: shape {tuple(dy.shape)} exceeds the grid")
-    lib = _build.load()
-    with torch.cuda.device(dy.device):
-        dx = torch.empty((n, h, w, c), dtype=dy.dtype, device=dy.device)
-        err = lib.uegan_upsample2x_bwd(
-            dy.data_ptr(), dx.data_ptr(), _build.dtype_code(dy), n, h, w, c,
-            vector_width(dy, dx), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, err, "upsample2x_backward")
-    upsample2x_backward.launches += 1
-    return dx
+    # dx comes from the caching allocator, aligned to far more than 16 bytes
+    plan = backward_plan(n, h2 // 2, w2 // 2, c, dy.element_size(), dy.data_ptr() % 16)
+    return _launch_backward(dy, plan)
 
 
 upsample2x.launches = 0
