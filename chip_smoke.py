@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from uegan_tpu_torch/csrc/ (one nvcc
-a source, started together) and runs eight phases, each of which ends the
+a source, started together) and runs nine phases, each of which ends the
 run with a non-zero exit on failure:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
@@ -60,19 +60,22 @@ run with a non-zero exit on failure:
    1 under int8_pallas (ga1), 0 under int8;
 5. end to end: ``--mode test`` through uegan_tpu_torch.cli.run on a synthetic
    FiveK-layout test set of 8 images at 512 px with a reference-format .pth,
-   bfloat16, batch 4, three times: with ``--packed_inference false``
+   bfloat16, batch 4, NIMA on (the JAX default: bf16, seeded weights; it
+   launches none of the kernels), three times: with ``--packed_inference false``
    (launches gam_stats 10, upsample2x 8), with the default packed path
    (s2d_convert 2, residual_tail_d2s 2, upsample2x 6, gam_stats 0), and with
    ``--quantized_inference int8_pallas`` (packed_conv_int8 2; with the
    calibration forward on the first batch gam_stats 12, upsample2x 9,
    s2d_convert 3, residual_tail_d2s 2).  Each writes 8 result PNGs and the
-   PSNR and SSIM CSVs, within 35 dB PSNR (30 dB for int8) of a float32
-   canonical forward with the plain versions;
+   PSNR, SSIM and NIMA CSVs, within 35 dB PSNR (30 dB for int8) of a float32
+   canonical forward with the plain versions; then seconds per image of the
+   packed default over 32 images with NIMA on and off (off, on, on, off);
 6. train: ``--mode train`` through uegan_tpu_torch.cli.run at the default
    width (cd 32, dd 32, 256 px crops of 512, batch 10, pool 50, bf16) on a
    synthetic FiveK layout of 30 pairs, 3 steps and a validation batch
-   (launches A 20, B 16, A' 15, B' 12), then ``--mode test`` on the .pth it
-   wrote; in process, 2 steps from one seeded state with the kernels and
+   (launches A 20, B 16, A' 15, B' 12) with NIMA and the on-device PSNR/SSIM
+   on (the JAX defaults: both printed, NIMA's CSVs and best-epoch line
+   written), then ``--mode test`` on the .pth it wrote; in process, 2 steps from one seeded state with the kernels and
    with the plain versions in float32 with TF32 off and deterministic cuDNN
    (losses within rel 1e-4; parameters within 1e-4 but for at most 1e-3 of
    them, where Adam's first steps divide a nearly cancelling gradient, by at
@@ -101,7 +104,16 @@ run with a non-zero exit on failure:
    aten.upsample_bilinear2d_backward);
 8. profile: the canonical, packed and int8_pallas forwards at 512 px, batch
    8, bfloat16, under torch.profiler: wall and device-busy time per forward,
-   the device's idle share, and device time in buckets of kernel names.
+   the device's idle share, and device time in buckets of kernel names;
+9. NIMA (no kernel of its own: cuDNN convs and a cuBLAS linear layer, as
+   JAX hands them to XLA): the f32 forward at 224 px, batch 16, TF32 off,
+   against the module run on the CPU in float64 (probabilities <= 2e-5);
+   bf16 against f32 (each mean score <= 0.3); images/s of the forward at
+   batch 16 and 128 in bf16 and f32; calc_nima over 64 PNGs of 512 px, its
+   host preparation and device scoring timed apart; train_nima one epoch
+   on a synthetic AVA layout in bf16 and f32 (finite EMD) and ms per train
+   step at 224 px, batch 32; the bf16 forward and the train steps under
+   torch.profiler (busy and idle time, kernels a call).
 
 It then prints the kernels' JSON line and, last, the device JSON line.  It
 exits non-zero without a result where CUDA is unavailable or where the
@@ -111,6 +123,7 @@ uegan_tpu_torch package is not beside this file.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -220,6 +233,23 @@ BUCKETS = [
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+class Tee(io.TextIOBase):
+    """Writes to several text streams: stdout and a buffer a check reads."""
+
+    def __init__(self, *streams):
+        super().__init__()
+        self.streams = streams
+
+    def write(self, text: str) -> int:
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        for stream in self.streams:
+            stream.flush()
 
 
 def card_line() -> str:
@@ -1073,8 +1103,8 @@ def phase_end_to_end(dev, tmp: str) -> dict:
                 "--test_label_dir", os.path.join(test_dir, "label") + os.sep,
                 "--save_root_dir", root, "--g_conv_dim", "32",
                 "--test_img_size", str(IMG), "--val_batch_size", "4", "--pretrained_model", "92",
-                "--is_test_nima", "false", "--is_test_psnr_ssim", "true",
-                "--compute_dtype", "bfloat16", "--num_workers", "4"]
+                "--is_test_psnr_ssim", "true", "--compute_dtype", "bfloat16",
+                "--num_workers", "4"]
         argv += flags[path]
         t0 = time.time()
         reset_counts()
@@ -1088,10 +1118,14 @@ def phase_end_to_end(dev, tmp: str) -> dict:
             raise AssertionError(f"--mode test ({path}) wrote {outs}")
         check_counts(f"--mode test ({path}, 2 batches)", launched, expect[path])
         for sub, csv in (("psnr_test_results", "PSNR_epoch_92.0.csv"),
-                         ("ssim_test_results", "SSIM_epoch_92.0.csv")):
+                         ("ssim_test_results", "SSIM_epoch_92.0.csv"),
+                         ("nima_test_results", "NIMA_total_results_epoch_mean_std.csv")):
             if not os.path.exists(os.path.join(root, sub, csv)):
                 raise AssertionError(f"missing {sub}/{csv} ({path})")
-        if not (math.isfinite(res["psnr"]) and math.isfinite(res["ssim"])):
+        nima_rows = nima_csv(os.path.join(root, "nima_test_results", "NIMA_epoch_92.0__mean_std.csv"))
+        if [r[0] for r in nima_rows] != outs + ["Average"]:
+            raise AssertionError(f"NIMA CSV ({path}) rows {[r[0] for r in nima_rows]}")
+        if not all(math.isfinite(res[k]) for k in ("psnr", "ssim", "nima")):
             raise AssertionError(f"metrics not finite ({path}): {res}")
         got = np.stack([read_png_rgb(os.path.join(out_dir, n)) for n in outs])
         if got.shape != (8, IMG, IMG, 3):
@@ -1099,14 +1133,57 @@ def phase_end_to_end(dev, tmp: str) -> dict:
         diff = np.abs(got.astype(np.float64) - want)
         psnr = 10 * math.log10(255.0 ** 2 / max(float((diff ** 2).mean()), 1e-12))
         log("5 end to end", f"--mode test {path} bf16 B=4: 8 PNGs {IMG}x{IMG}, PSNR "
-                            f"{res['psnr']:.4f} dB, SSIM {res['ssim']:.4f} vs labels; launches "
+                            f"{res['psnr']:.4f} dB, SSIM {res['ssim']:.4f} vs labels, NIMA (bf16, "
+                            f"seeded) {res['nima']:.4f}; launches "
                             f"{launched} for 2 batches; vs f32 plain canonical forward: PSNR "
                             f"{psnr:.2f} dB (limit >= {limit[path]:g}), max |du8| "
                             f"{int(diff.max())}, mean |du8| {diff.mean():.4f}; {secs:.1f} s")
         if psnr < limit[path]:
             raise AssertionError(f"{path} bf16 outputs only {psnr:.2f} dB from the f32 forward")
         launches[path] = launched
+    time_mode_test(tmp, os.path.join(tmp, "results_packed"), rng)
     return launches
+
+
+def nima_csv(path: str) -> list:
+    """The rows of a NIMA epoch CSV under its header, each mean and std
+    finite."""
+    import csv
+
+    with open(path) as f:
+        rows = list(csv.reader(f))[1:]
+    if not all(math.isfinite(float(v)) for r in rows for v in r[1:]):
+        raise AssertionError(f"{path}: {rows}")
+    return rows
+
+
+def time_mode_test(tmp: str, results: str, rng, n: int = 32) -> None:
+    """Seconds per image of ``--mode test`` on the packed default at 512 px,
+    bf16, batch 4, over n images (all of a run: loader, forwards, PNGs,
+    metrics), with NIMA on (the default) and off, in the order off, on, on,
+    off."""
+    import torch
+
+    from uegan_tpu_torch import cli
+
+    test_dir = os.path.join(tmp, "fivek_timing", "test")
+    write_pairs(test_dir, ("label", "raw"), n, (IMG, IMG), rng)
+    secs = {"true": [], "false": []}
+    for nima in ("false", "true", "true", "false"):
+        t0 = time.time()
+        res = cli.run(["--mode", "test", "--test_img_dir", test_dir,
+                       "--save_root_dir", results, "--g_conv_dim", str(CD),
+                       "--test_img_size", str(IMG), "--val_batch_size", "4",
+                       "--pretrained_model", "92", "--compute_dtype", "bfloat16",
+                       "--num_workers", "4", "--is_test_nima", nima])
+        torch.cuda.synchronize()
+        secs[nima].append(time.time() - t0)
+        if res["n_images"] != n or (nima == "true") != ("nima" in res):
+            raise AssertionError(f"--mode test (timing, NIMA {nima}): {res}")
+    for nima, what in (("true", "on"), ("false", "off")):
+        per = [s / n for s in secs[nima]]
+        log("5 end to end", f"--mode test packed bf16 B=4, {n} images of {IMG} px, NIMA {what}: "
+                            f"{sum(per) / 2:.4f} s per image (runs {[round(p, 4) for p in per]})")
 
 
 def write_pairs(root: str, subs, n: int, hw, rng, stem: str = "a") -> list:
@@ -1131,8 +1208,7 @@ def train_config(dtype: str, **kw):
     from uegan_tpu_torch.config import Config
 
     return Config(mode="train", g_conv_dim=CD, d_conv_dim=CD, image_size=2 * TRAIN_HW,
-                  resize_size=TRAIN_HW, train_batch_size=TRAIN_B, compute_dtype=dtype,
-                  is_test_nima=False, **kw)
+                  resize_size=TRAIN_HW, train_batch_size=TRAIN_B, compute_dtype=dtype, **kw)
 
 
 def seeded_train_state(dtype: str, dev):
@@ -1208,7 +1284,7 @@ def phase_train(dev, card: str, tmp: str) -> dict:
         write_pairs(os.path.join(data, part), ("label", "raw"), 2, (IMG, IMG), rng)
     root = os.path.join(tmp, "results_train")
     common = ["--save_root_dir", root, "--g_conv_dim", str(CD), "--d_conv_dim", str(CD),
-              "--test_img_size", str(IMG), "--val_batch_size", "2", "--is_test_nima", "false",
+              "--test_img_size", str(IMG), "--val_batch_size", "2",
               "--is_test_psnr_ssim", "true", "--compute_dtype", "bfloat16", "--num_workers", "8"]
     argv = ["--mode", "train", "--train_img_dir", os.path.join(data, "train"),
             "--val_img_dir", os.path.join(data, "val"),
@@ -1219,10 +1295,20 @@ def phase_train(dev, card: str, tmp: str) -> dict:
             "--sample_step", "3"] + common
     t0 = time.time()
     reset_counts()
-    res = cli.run(argv)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+        res = cli.run(argv)
     torch.cuda.synchronize()
     cli_counts = counts()
     secs = time.time() - t0
+    # NIMA and the on-device PSNR/SSIM ran in the validation, on the JAX defaults
+    nima_total = os.path.join(root, "nima_val_results", "NIMA_total_results_epoch_mean_std.csv")
+    od = [ln for ln in printed.getvalue().splitlines() if "On-device Avg. PSNR" in ln]
+    if (len(od) != 1 or "Avg. NIMA" not in printed.getvalue() or not os.path.exists(nima_total)
+            or not open(nima_total).read().splitlines()[-1].startswith("Best epoch:1.0,")):
+        raise AssertionError(f"--mode train: on-device metrics {od}, NIMA total CSV "
+                             f"{os.path.exists(nima_total)}")
+    nima_csv(os.path.join(root, "nima_val_results", "NIMA_epoch_1.0__mean_std.csv"))
     want = {k: 3 * v for k, v in per_step.items()}
     want["gam_stats"] += 5  # the validation forward (2 images, one batch)
     want["upsample2x"] += 4
@@ -1235,14 +1321,15 @@ def phase_train(dev, card: str, tmp: str) -> dict:
     log("6 train", f"python -m uegan_tpu_torch --mode train, cd {CD} dd {CD}, {TRAIN_HW} px crops "
                    f"of {2 * TRAIN_HW}, B={TRAIN_B}, bf16, 30 pairs: 3 steps in {secs:.1f} s with "
                    f"validation, last losses {losses}; launches {cli_counts}; wrote "
-                   f"{os.path.basename(pth)}")
+                   f"{os.path.basename(pth)}; validation: {od[0].strip('= ')}, NIMA "
+                   f"{open(nima_total).read().splitlines()[0]}")
     test_dir = os.path.join(data, "test")
     res = cli.run(["--mode", "test", "--test_img_dir", test_dir, "--test_label_dir",
                    os.path.join(test_dir, "label") + os.sep, "--pretrained_model", "1"] + common)
-    if res["n_images"] != 2 or not math.isfinite(res["psnr"]):
+    if res["n_images"] != 2 or not (math.isfinite(res["psnr"]) and math.isfinite(res["nima"])):
         raise AssertionError(f"--mode test on the trained .pth: {res}")
     log("6 train", f"--mode test on {os.path.basename(pth)}: {res['n_images']} PNGs, PSNR "
-                   f"{res['psnr']:.4f} dB, SSIM {res['ssim']:.4f}")
+                   f"{res['psnr']:.4f} dB, SSIM {res['ssim']:.4f}, NIMA {res['nima']:.4f}")
 
     # kernels against plain versions, 2 steps from one state, float32, with
     # TF32 off and cuDNN's deterministic algorithms (its weight gradients
@@ -1731,6 +1818,174 @@ def phase_profile(dev, card: str) -> None:
                     log("8 profile", f"longest: {us:9.1f} us [{bucket_of(kname)}] {kname[:120]}")
 
 
+def nima_images(n: int, hw: int, rng):
+    """n (hw, hw, 3) uint8 images of smooth gradients with noise, as
+    write_pairs makes them."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:hw, 0:hw] / hw
+    out = np.empty((n, hw, hw, 3), np.uint8)
+    for i in range(n):
+        base = np.stack([yy * rng.uniform(0.3, 1), xx * rng.uniform(0.3, 1),
+                         (yy + xx) / 2 * rng.uniform(0.3, 1)], -1)
+        out[i] = np.clip(base * 255 + rng.normal(0, 12, base.shape), 0, 255)
+    return out
+
+
+def write_ava(root: str, n: int, rng) -> tuple:
+    """A synthetic AVA layout: n JPEGs of 320x256 (landscape and portrait)
+    under root/images and an AVA.txt of random score counts; returns the
+    train/val/test CSVs of clean_and_split (val 0.1, test 0.05)."""
+    from PIL import Image
+
+    from uegan_tpu_torch.nima_train.dataset import clean_and_split
+
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    imgs = nima_images(n, 320, rng)
+    lines = []
+    for i in range(n):
+        img = imgs[i, :256] if i % 2 else imgs[i, :, :256]
+        Image.fromarray(img).save(os.path.join(img_dir, f"{1000 + i}.jpg"), quality=90)
+        counts = " ".join(str(int(c)) for c in rng.integers(0, 50, 10))
+        lines.append(f"{i} {1000 + i} {counts} 1 22 1396")
+    with open(os.path.join(root, "AVA.txt"), "w") as f:
+        f.write("\n".join(lines))
+    return clean_and_split(os.path.join(root, "AVA.txt"), img_dir, os.path.join(root, "splits"))
+
+
+def log_nima_profile(what: str, r: dict, card: str) -> None:
+    kernels = sum(n for _, n in r["buckets"].values())
+    top = sorted(r["buckets"].items(), key=lambda kv: -kv[1][0])[:6]
+    log("9 nima", f"{what} under torch.profiler: wall {r['wall_ms']:.3f} ms, device busy "
+                  f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, {kernels:g} kernels "
+                  f"a call; ms (kernels): " + ", ".join(f"{k} {ms:.3f} ({n:g})"
+                                                        for k, (ms, n) in top) + f" [{card}]")
+
+
+def phase_nima(dev, card: str, tmp: str) -> None:
+    """NIMA (MobileNetV2, 224 px; the scorer behind the default ``--mode
+    test`` and ``--mode train``, seeded weights) on the card:
+
+    - the f32 forward (TF32 off) at B=16 against the same module run on the
+      CPU in float64: probabilities <= 2e-5; the process's TF32 flags as
+      they were;
+    - bf16 against f32 on the card: each image's mean score <= 0.3 (JAX's
+      own bf16 bound, tests/test_metrics.py);
+    - images/s of the forward at B=16 (calc_nima's chunk) and B=128, bf16
+      and f32, CUDA events;
+    - calc_nima over 64 PNGs of 512 px: wall time, and apart the host's PIL
+      decode, resize and crop and the device's scoring;
+    - train_nima for one epoch on a synthetic AVA layout of 112 JPEGs (3
+      steps of B=32 at 224 px, then validation), bf16 and f32: finite EMD,
+      nima_best.pth written; and ms per step at B=32, bf16 and f32 (host
+      clock around 5 steps ending in a synchronize, after 2 of warm-up);
+    - the bf16 forward (B=16, 128) and both train steps under torch.profiler:
+      wall and device-busy ms, idle share, kernels a call, the largest
+      buckets.
+    """
+    import numpy as np
+    import torch
+
+    from uegan_tpu_torch.metrics.nima import calc_nima, init_nima, load_images, nima_scores
+    from uegan_tpu_torch.models.nima import NIMA, score_stats
+    from uegan_tpu_torch.nima_train.train import make_nima_train_step, train_nima
+    from uegan_tpu_torch.utils.image_io import save_image
+
+    rng = np.random.default_rng(SEED)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    x = torch.from_numpy(nima_images(16, 224, rng).astype(np.float32) / 255.0)
+    m32 = init_nima(compute_dtype="float32", device=dev)
+    m16 = init_nima(compute_dtype="bfloat16", device=dev)
+    with torch.inference_mode():
+        p32 = m32(x.to(dev)).double().cpu()
+        p16 = m16(x.to(dev)).double().cpu()
+        m64 = NIMA(dtype=torch.float64).load_reference(m32.state_dict()).double().eval()
+        p64 = m64(x.double())
+    if (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) != flags:
+        raise AssertionError("the f32 NIMA forward left the TF32 flags changed")
+    err = float((p32 - p64).abs().max())
+    mean32, mean64, mean16 = score_stats(p32)[0], score_stats(p64)[0], score_stats(p16)[0]
+    d16 = (mean16 - mean32).abs()
+    log("9 nima", f"f32 forward on the card (TF32 off) vs float64 on the CPU, 224 px B=16: max "
+                  f"|d prob| {err:.3e} (limit 2e-5), max |d mean score| "
+                  f"{float((mean32 - mean64).abs().max()):.3e}; bf16 vs f32 on the card: "
+                  f"|d mean score| max {float(d16.max()):.4f} (limit 0.3), mean "
+                  f"{float(d16.mean()):.4f}, set average {float(mean16.mean()):.4f} vs "
+                  f"{float(mean32.mean()):.4f}")
+    if err > 2e-5 or float(d16.max()) > 0.3:
+        raise AssertionError("NIMA on the card disagrees with its float64 or float32 forward")
+
+    with torch.inference_mode():
+        for b in (16, 128):
+            xb = torch.rand((b, 224, 224, 3), device=dev)
+            for name, m in (("bf16", m16), ("f32", m32)):
+                ms = cuda_ms(lambda: m(xb), iters=20 if b == 16 else 5)
+                log("9 nima", f"NIMA forward 224 px B={b} {name}: {ms:.3f} ms, "
+                              f"{b * 1000 / ms:.1f} img/s [{card}]")
+            log_nima_profile(f"NIMA forward 224 px B={b} bf16", profile(lambda: m16(xb)), card)
+
+    folder = os.path.join(tmp, "nima_pngs")
+    os.makedirs(folder)
+    for i, img in enumerate(nima_images(64, IMG, rng)):
+        save_image(img, os.path.join(folder, f"p{i:03d}.png"))
+    names = sorted(os.listdir(folder))
+    calc_nima(folder, os.path.join(tmp, "nima_warm"), 0, model=m16, verbose=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avg = calc_nima(folder, os.path.join(tmp, "nima_out"), 1, model=m16, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chunks = [load_images(folder, names[i:i + 16]) for i in range(0, len(names), 16)]
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in chunks:
+        nima_scores(m16, c)
+    torch.cuda.synchronize()
+    device = time.perf_counter() - t0
+    rows = nima_csv(os.path.join(tmp, "nima_out", "NIMA_epoch_1__mean_std.csv"))
+    if len(rows) != 65 or not math.isfinite(avg):
+        raise AssertionError(f"calc_nima over 64 PNGs: {len(rows)} rows, average {avg}")
+    log("9 nima", f"calc_nima bf16 over 64 PNGs of {IMG} px, chunks of 16: wall {wall:.3f} s "
+                  f"({64 / wall:.1f} img/s); host decode + resize + crop alone {host:.3f} s, "
+                  f"device scoring alone (copy in, forward, stats out) {device:.3f} s; average "
+                  f"{avg:.4f} [{card}]")
+
+    train_csv, val_csv, _ = write_ava(os.path.join(tmp, "ava"), 112, rng)
+    for dtype in ("bfloat16", "float32"):
+        t0 = time.time()
+        out = os.path.join(tmp, f"nima_train_{dtype}")
+        hist = train_nima(train_csv, val_csv, out, epochs=1, batch_size=32, compute_dtype=dtype,
+                          device=dev, verbose=False)
+        if not (math.isfinite(hist["best_val"]) and os.path.exists(
+                os.path.join(out, "nima_best.pth"))):
+            raise AssertionError(f"train_nima {dtype}: {hist}")
+        model = init_nima(compute_dtype=dtype, device=dev)
+        opt = torch.optim.Adam(model.parameters(), lr=3e-4, eps=1e-8)
+        step = make_nima_train_step(model, opt, torch.Generator(device=dev).manual_seed(SEED))
+        xb = torch.rand((32, 224, 224, 3), device=dev)
+        tb = torch.softmax(torch.randn((32, 10), device=dev), -1)
+        losses = [float(step(xb, tb)) for _ in range(2)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            loss = step(xb, tb)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) / 5 * 1e3
+        log_nima_profile(f"NIMA train step 224 px B=32 {dtype}",
+                         profile(lambda: step(xb, tb), iters=5, warmup=2), card)
+        if not all(math.isfinite(v) for v in losses + [float(loss)]):
+            raise AssertionError(f"nima train step {dtype}: losses {losses}, {float(loss)}")
+        log("9 nima", f"train_nima {dtype}, 1 epoch of 3 steps B=32 at 224 px on a synthetic AVA "
+                      f"layout: val EMD {hist['best_val']:.4f}, {time.time() - t0:.1f} s with "
+                      f"decode; train step 224 px B=32 {dtype}: {ms:.3f} ms per step, "
+                      f"{32 * 1000 / ms:.1f} img/s, EMD {float(loss):.4f} [{card}]")
+    if (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) != flags:
+        raise AssertionError("the f32 NIMA train step left the TF32 flags changed")
+
+
 def main() -> int:
     import torch
 
@@ -1778,6 +2033,8 @@ def main() -> int:
         launches["train"] = phase_train(dev, card, tmp)["launches"]
     timing = phase_timing(dev, card)
     phase_profile(dev, card)
+    with tempfile.TemporaryDirectory(prefix="uegan_smoke_nima_") as tmp:
+        phase_nima(dev, card, tmp)
 
     src = {"gam_stats": ("uegan_tpu_torch/csrc/gam_stats.cu",
                          "uegan_tpu/ops/pallas/gam_stats.py:66"),

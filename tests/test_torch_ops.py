@@ -306,7 +306,7 @@ def test_cpu_dispatch_and_refusals():
 
 
 @pytest.mark.parametrize("flags", [
-    {"mode": "train", "g_norm_fun": "InstanceNorm"}, {"is_test_nima": True}, {"tile_size": 512},
+    {"mode": "train", "g_norm_fun": "InstanceNorm"}, {"tile_size": 512},
     {"mesh_spatial": 2},
     {"test_keep_aspect": True}, {"quantized_inference": "int8", "strip_rows": 8},
     {"quantized_inference": "int8_pallas", "tile_size": 512}, {"g_use_sn": True},
@@ -316,12 +316,13 @@ def test_options_outside_the_slice_raise(flags):
     from uegan_tpu_torch.cli import check_supported
     from uegan_tpu_torch.config import Config
 
-    check_supported(Config(mode="test", is_test_nima=False))
-    check_supported(Config(mode="test", is_test_nima=False, packed_inference=False, strip_rows=8))
+    check_supported(Config(mode="test"))
+    check_supported(Config(mode="train"))
+    check_supported(Config(mode="test", packed_inference=False, strip_rows=8))
     for qi in ("int8", "int8_pallas"):
-        check_supported(Config(mode="test", is_test_nima=False, quantized_inference=qi))
+        check_supported(Config(mode="test", quantized_inference=qi))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(Config(**{"mode": "test", "is_test_nima": False, **flags}))
+        check_supported(Config(**{"mode": "test", **flags}))
 
 
 @pytest.mark.parametrize("argv", [[], ["--mode", "test", "--packed_inference", "false",
@@ -373,7 +374,10 @@ def test_port_imports_no_jax():
             "uegan_tpu_torch.models.vgg, uegan_tpu_torch.losses.gan, "
             "uegan_tpu_torch.losses.perceptual, uegan_tpu_torch.losses.reconstruction, "
             "uegan_tpu_torch.ops.spectral_norm, uegan_tpu_torch.ops.pooling, "
-            "uegan_tpu_torch.convert.from_flax, uegan_tpu_torch.utils.checkpoint; "
+            "uegan_tpu_torch.convert.from_flax, uegan_tpu_torch.utils.checkpoint, "
+            "uegan_tpu_torch.models.nima, uegan_tpu_torch.metrics.nima, "
+            "uegan_tpu_torch.metrics.nima_cli, uegan_tpu_torch.losses.extra, "
+            "uegan_tpu_torch.nima_train.cli, uegan_tpu_torch.nima_train.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'uegan_tpu') or m.startswith('jax_')); "
             "assert not bad, bad")

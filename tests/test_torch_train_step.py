@@ -34,7 +34,7 @@ from tests.test_torch_train import jax_vgg_params
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "verify_fivek",
                        "train")
 FLAGS = dict(g_conv_dim=8, d_conv_dim=8, image_size=48, resize_size=32, train_batch_size=2,
-             pool_size=4, compute_dtype="float32", packed_train=False, is_test_nima=False)
+             pool_size=4, compute_dtype="float32", packed_train=False)
 
 
 @pytest.fixture(autouse=True, scope="module")

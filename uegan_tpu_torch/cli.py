@@ -34,8 +34,6 @@ def resolve_device(name: Optional[str] = None) -> torch.device:
 def check_supported(args: Config) -> None:
     """Raise for each option outside this slice of the port."""
     unsupported = [
-        (args.is_test_nima, "--is_test_nima true: NIMA is ROADMAP queue 1 item 7 "
-                            "(pass --is_test_nima false)"),
         (args.tile_size > 0, "--tile_size > 0: tiled inference is ROADMAP queue 1 item 8"),
         (args.mesh_spatial > 1, "--mesh_spatial > 1: spatial sharding is ROADMAP queue 1 "
                                 "items 8-9"),

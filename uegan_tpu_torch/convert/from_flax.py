@@ -6,7 +6,10 @@ the ``batch_stats`` ``mean``/``var`` become ``running_mean``/
 ``running_var``), ``import_discriminator`` (a spectrally normalized kernel
 becomes ``weight_orig``, its ``spectral`` ``u``/``v`` ``weight_u``/
 ``weight_v``) and ``import_vgg19`` (``conv{s}_{i}_kernel`` becomes
-torchvision's ``features.{idx}.weight``).  Values may be numpy arrays or
+torchvision's ``features.{idx}.weight``) and ``import_nima`` (the
+MobileNetV2 trunk's ``base/{stem,block{i}/{pw,dw,pw_linear},head_conv}``
+become the reference's ``base_model.0.{idx}``, the ``fc`` kernel is
+transposed into ``head.2.weight``).  Values may be numpy arrays or
 anything ``np.asarray`` takes; nothing here imports JAX.
 """
 
@@ -118,4 +121,37 @@ def vgg_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             continue
         sd[f"features.{idx}.weight"] = _oihw(params[f"{name}_kernel"])
         sd[f"features.{idx}.bias"] = _t(params[f"{name}_bias"])
+    return sd
+
+
+def nima_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"params": ..., "batch_stats": ...}`` of :class:`uegan_tpu.models.
+    nima.NIMA` -> the reference-named state dict of ``uegan_tpu_torch``'s
+    NIMA (without ``num_batches_tracked``, which its loader does not need)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv_bn(path: Tuple[str, ...], conv: str, bn: str) -> None:
+        node = _node(params, path)
+        if node is None:
+            raise KeyError(f"flax NIMA variables lack {'/'.join(path)}")
+        sd[f"{conv}.weight"] = _oihw(node["kernel"])
+        sd[f"{bn}.weight"] = _t(node["bn"]["scale"])
+        sd[f"{bn}.bias"] = _t(node["bn"]["bias"])
+        rs = _node(stats, path + ("bn",))
+        if rs is None:
+            raise KeyError(f"flax NIMA variables lack batch_stats {'/'.join(path)}/bn")
+        sd[f"{bn}.running_mean"] = _t(rs["mean"])
+        sd[f"{bn}.running_var"] = _t(rs["var"])
+
+    base = "base_model.0"
+    conv_bn(("base", "stem"), f"{base}.0.0", f"{base}.0.1")
+    for i in range(17):
+        t = f"{base}.{i + 1}.conv"
+        for j, name in ((0, "pw"), (3, "dw"), (6, "pw_linear")):
+            conv_bn(("base", f"block{i}", name), f"{t}.{j}", f"{t}.{j + 1}")
+    conv_bn(("base", "head_conv"), f"{base}.18.0", f"{base}.18.1")
+    sd["head.2.weight"] = _t(np.ascontiguousarray(np.asarray(params["fc"]["kernel"]).T))
+    sd["head.2.bias"] = _t(params["fc"]["bias"])
     return sd

@@ -1,5 +1,5 @@
-"""PSNR in the reference's disk/CSV protocol, counterpart of
-uegan_tpu/metrics/psnr.py:calc_psnr.
+"""PSNR, batched on the device and in the reference's disk/CSV protocol,
+counterpart of uegan_tpu/metrics/psnr.py.
 
 Generated PNGs are matched to ground truth by stripping the last two
 '_'-separated fields of the stem; both get a 4-pixel border crop; PSNR is
@@ -19,8 +19,22 @@ import glob
 import os
 
 import numpy as np
+import torch
 
 from uegan_tpu_torch.utils.image_io import read_png_rgb
+
+
+def psnr_batch(pred: torch.Tensor, target: torch.Tensor, data_range: float = 255.0,
+               crop_border: int = 0) -> torch.Tensor:
+    """Per-image PSNR of NHWC batches (any float dtype, same range) in f32,
+    the MSE clamped at 1e-12 -> (N,)."""
+    if crop_border > 0:
+        c = crop_border
+        pred = pred[:, c:-c, c:-c, :]
+        target = target[:, c:-c, c:-c, :]
+    diff = pred.float() - target.float()
+    mse = (diff * diff).mean(dim=(1, 2, 3))
+    return 10.0 * torch.log10((data_range ** 2) / torch.clamp(mse, min=1e-12))
 
 
 def gt_name_from_generated(path: str) -> str:

@@ -4,8 +4,9 @@ uegan_tpu/metrics/ssim.py:calc_ssim.
 The reference computes skimage ``structural_similarity(multichannel=True,
 data_range=255)`` after a 4-px border crop: a 7x7 uniform window, K1 0.01,
 K2 0.03, covariances scaled by NP/(NP-1) with NP = 49, the map averaged over
-the valid region of each channel and then over channels.  A stride-1 7x7
-average pool is that uniform filter over the valid region.
+the valid region of each channel and then over channels.  As in the JAX
+package, that uniform filter over the valid region is a depthwise VALID
+conv with weights 1/49, run in f32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -15,20 +16,30 @@ import torch
 import torch.nn.functional as F
 
 from uegan_tpu_torch.metrics.psnr import disk_protocol
+from uegan_tpu_torch.ops.conv import exact_f32
 
 
 def ssim_batch(pred: torch.Tensor, target: torch.Tensor, data_range: float = 255.0,
-               win_size: int = 7, k1: float = 0.01, k2: float = 0.03) -> torch.Tensor:
+               win_size: int = 7, k1: float = 0.01, k2: float = 0.03,
+               crop_border: int = 0) -> torch.Tensor:
     """Per-image SSIM of NHWC batches in f32 -> (N,)."""
+    if crop_border > 0:
+        c = crop_border
+        pred = pred[:, c:-c, c:-c, :]
+        target = target[:, c:-c, c:-c, :]
     x = pred.float().permute(0, 3, 1, 2)
     y = target.float().permute(0, 3, 1, 2)
-    mean = lambda t: F.avg_pool2d(t, win_size, stride=1)
+    c = x.shape[1]
     np_win = win_size * win_size
+    kernel = torch.full((c, 1, win_size, win_size), 1.0 / np_win, device=x.device)
+    mean = lambda t: F.conv2d(t, kernel, groups=c)
     cov_norm = np_win / (np_win - 1.0)
-    ux, uy = mean(x), mean(y)
-    vx = cov_norm * (mean(x * x) - ux * ux)
-    vy = cov_norm * (mean(y * y) - uy * uy)
-    vxy = cov_norm * (mean(x * y) - ux * uy)
+    with exact_f32(torch.float32):
+        ux, uy = mean(x), mean(y)
+        uxx, uyy, uxy = mean(x * x), mean(y * y), mean(x * y)
+    vx = cov_norm * (uxx - ux * ux)
+    vy = cov_norm * (uyy - uy * uy)
+    vxy = cov_norm * (uxy - ux * uy)
     c1 = (k1 * data_range) ** 2
     c2 = (k2 * data_range) ** 2
     s = ((2 * ux * uy + c1) * (2 * vxy + c2)) / ((ux**2 + uy**2 + c1) * (vx + vy + c2))

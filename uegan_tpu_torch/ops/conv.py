@@ -13,10 +13,27 @@ f32 parameters cast to it; cuDNN accumulates bf16 in f32) and returns
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+
+@contextlib.contextmanager
+def exact_f32(dtype: torch.dtype):
+    """TF32 off for cuDNN convs and cuBLAS matmuls while float32 work that JAX
+    runs at ``Precision.HIGHEST`` runs, the process's flags restored after."""
+    if dtype != torch.float32:
+        yield
+        return
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def same_reflect_padding(kernel_size: int, dilation: int = 1) -> int:

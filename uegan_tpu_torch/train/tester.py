@@ -1,9 +1,12 @@
 """Inference engine, counterpart of uegan_tpu/train/tester.py.
 
 Loads the epoch's reference ``.pth``, enhances the whole test set, saves the
-outputs and side-by-side compare PNGs, then runs PSNR/SSIM over the saved
-files.  The batch is normalized, enhanced and quantized to uint8 on the
-device, so only 1-byte pixels cross to and from it.  Every batch runs at
+outputs and side-by-side compare PNGs, then runs NIMA (``--is_test_nima``,
+on by default as in JAX) and PSNR/SSIM over the saved files.  NIMA is built
+once per Tester, from ``--nima_weights`` (seeded without one) in
+``--nima_dtype``, on the Tester's device.  The batch is normalized,
+enhanced and quantized to uint8 on the device, so only 1-byte pixels cross
+to and from it.  Every batch runs at
 ``val_batch_size``: the tail batch is padded with zeros and cropped back,
 as in the JAX package.  The forward is ``infer/packed.py:make_fast_eval``
 (packed under the default ``--packed_inference true``; int8 under
@@ -25,6 +28,7 @@ import torch
 
 from uegan_tpu_torch.config import Config
 from uegan_tpu_torch.infer.packed import make_fast_eval
+from uegan_tpu_torch.metrics.nima import calc_nima, init_nima
 from uegan_tpu_torch.metrics.psnr import calc_psnr
 from uegan_tpu_torch.metrics.ssim import calc_ssim
 from uegan_tpu_torch.models.generator import Generator
@@ -64,7 +68,14 @@ class Tester:
             n = sum(p.numel() for p in self.G.parameters())
             print(f"=== The number of parameters of [Generator] is [{n}] or [{n / 1e6:>.4f}M] ===")
         self._fast_fn = None  # built from the loaded weights at the first batch
+        self._nima = None  # built at the first NIMA scoring
         print("=== Models have been created ===")
+
+    def nima(self):
+        if self._nima is None:
+            self._nima = init_nima(self.args.nima_weights, compute_dtype=self.args.nima_dtype,
+                                   device=self.device)
+        return self._nima
 
     def load_pretrained_model(self, resume_epochs) -> None:
         path = find_checkpoint(self.model_save_path, self.args, resume_epochs)
@@ -122,6 +133,12 @@ class Tester:
               f"({time.time() - start_time:.1f}s) ===")
 
         results = {"n_images": n_done, "output_dir": test_save_path}
+        if args.is_test_nima:
+            nima_path = os.path.join(args.save_root_dir, "nima_test_results")
+            curr = calc_nima(test_save_path, nima_path, tag, legacy_average=args.legacy_metrics,
+                             model=self.nima())
+            print(f"====== Avg. NIMA: {curr:>.4f} ======")
+            results["nima"] = float(curr)
         if args.is_test_psnr_ssim:
             psnr_path = os.path.join(args.save_root_dir, "psnr_test_results")
             curr = calc_psnr(test_save_path, args.test_label_dir, psnr_path, tag,

@@ -5,14 +5,15 @@ trainer.py:39-146): the lr printed at each epoch's start, a loss line every
 ``info_step`` steps, sample panels (raw | fake | exp) every ``sample_step``
 steps, the reference's seven-key ``.pth`` every ``model_save_epoch``
 epochs, validation every ``val_each_epochs`` after ``num_epochs_start_val``
-(the canonical eval forward, then PSNR/SSIM over the saved PNGs in the
-reference's disk/CSV protocol) with the best epochs written at the end.
+(the canonical eval forward; under ``on_device_metrics`` PSNR and SSIM of
+the output against the paired label on the device, printed; then NIMA and
+PSNR/SSIM over the saved PNGs in the reference's disk/CSV protocol, the
+authoritative numbers) with the best epochs written at the end.
 SIGTERM or SIGINT asks for a checkpoint at the next step and ends the loop;
 ``--pretrained_model E`` (or -1, the newest) resumes from epoch E's
 ``.pth``: weights, spectral-norm vectors and optimizer moments, at step
 E * steps_per_epoch.  The image pool starts empty on a resume, as the JAX
-package's ``.pth`` resume does.  The on-device PSNR/SSIM fast path of the
-JAX trainer is not ported (ROADMAP queue 1 item 6).
+package's ``.pth`` resume does.
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ import numpy as np
 import torch
 
 from uegan_tpu_torch.config import Config
-from uegan_tpu_torch.metrics.psnr import calc_psnr
-from uegan_tpu_torch.metrics.ssim import calc_ssim
+from uegan_tpu_torch.metrics.nima import calc_nima, init_nima
+from uegan_tpu_torch.metrics.psnr import calc_psnr, psnr_batch
+from uegan_tpu_torch.metrics.ssim import calc_ssim, ssim_batch
 from uegan_tpu_torch.models.vgg import load_vgg_weights
 from uegan_tpu_torch.train.schedules import make_lr_schedule
 from uegan_tpu_torch.train.state import count_params, create_train_state
@@ -45,6 +47,11 @@ def _denorm_np(x) -> np.ndarray:
 def _u8_01(x: np.ndarray) -> np.ndarray:
     """A loader batch (uint8, or float in [-1, 1]) -> [0, 1] float32 or uint8 for PNGs."""
     return x if x.dtype == np.uint8 else _denorm_np(x)
+
+
+def _label255(x: np.ndarray) -> np.ndarray:
+    """A loader's label batch (uint8, or float in [-1, 1]) -> float32 on the 255 scale."""
+    return x.astype(np.float32) if x.dtype == np.uint8 else _denorm_np(x) * 255.0
 
 
 def info_line(start: float, step: int, total_steps: int, losses: Dict[str, float]) -> str:
@@ -68,12 +75,15 @@ class Trainer:
         self.train_steps_per_epoch = max(1, len(loaders["ref"]))
         self.model_save_step = max(1, int(args.model_save_epoch * self.train_steps_per_epoch))
         self.build_model()
+        self.best_nima_epoch, self.best_nima = 0.0, 0.0
         self.best_psnr_epoch, self.best_psnr = 0.0, 0.0
         self.best_ssim_epoch, self.best_ssim = 0.0, 0.0
+        self.nima_result_save_path = os.path.join(args.save_root_dir, "nima_val_results")
         self.psnr_save_path = os.path.join(args.save_root_dir, "psnr_val_results")
         self.ssim_save_path = os.path.join(args.save_root_dir, "ssim_val_results")
         self.start_time = time.time()
         self._stop_requested = False
+        self._nima = None  # built at the first validation that scores NIMA
 
     # ------------------------------------------------------------------
     def build_model(self) -> None:
@@ -109,6 +119,12 @@ class Trainer:
             for name, p in g.named_parameters():
                 p.copy_(self.state.g_ema[name])
         return g
+
+    def nima(self):
+        if self._nima is None:
+            self._nima = init_nima(self.args.nima_weights, compute_dtype=self.args.nima_dtype,
+                                   device=self.device)
+        return self._nima
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return normalize_u8(torch.from_numpy(np.ascontiguousarray(a)).to(self.device))
@@ -207,11 +223,22 @@ class Trainer:
         g = self.eval_generator()
         was_training = g.training
         g.eval()
+        od_psnr, od_ssim = [], []
         try:
             for batch in self.loaders["val"]:
                 raw = np.asarray(batch["img_raw"])
                 with torch.inference_mode():
-                    out_u8 = quantize_u8(g(self._to_device(raw))).cpu().numpy()
+                    out = g(self._to_device(raw))
+                    out_u8 = quantize_u8(out).cpu().numpy()
+                    if args.on_device_metrics and "img_exp" in batch:
+                        # batched PSNR/SSIM against the paired label straight
+                        # from the output tensor; the disk protocol below
+                        # stays the authoritative one
+                        out255 = torch.clamp((out.float() + 1.0) / 2.0, 0.0, 1.0) * 255.0
+                        label255 = torch.from_numpy(_label255(np.asarray(batch["img_exp"])))
+                        label255 = label255.to(self.device)
+                        od_psnr.extend(psnr_batch(out255, label255, crop_border=4).tolist())
+                        od_ssim.extend(ssim_batch(out255, label255, crop_border=4).tolist())
                 raw_u8 = _u8_01(raw)
                 for i in range(out_u8.shape[0]):
                     name = batch["img_name"][i]
@@ -222,6 +249,15 @@ class Trainer:
                         f"{name}_{current_epoch:0>3.2f}_valRealRaw_valFakeExp.png"))
         finally:
             g.train(was_training)
+        if od_psnr:
+            print(f"====== On-device Avg. PSNR: {np.mean(od_psnr):>.4f} dB, "
+                  f"SSIM: {np.mean(od_ssim):>.4f} ======")
+        if args.is_test_nima:
+            curr = calc_nima(val_save_path, self.nima_result_save_path, current_epoch,
+                             legacy_average=args.legacy_metrics, model=self.nima())
+            if self.best_nima < curr:
+                self.best_nima, self.best_nima_epoch = curr, current_epoch
+            print(f"====== Avg. NIMA: {curr:>.4f} ======")
         if args.is_test_psnr_ssim:
             curr_p = calc_psnr(val_save_path, args.val_label_dir, self.psnr_save_path,
                                current_epoch, legacy_average=args.legacy_metrics)
@@ -235,16 +271,20 @@ class Trainer:
             print(f"====== Avg. SSIM: {curr_s:>.4f}  ======")
 
     def val_best_results(self) -> None:
-        if not self.args.is_test_psnr_ssim:
-            return
-        for path, csv, epoch, best in (
-                (self.psnr_save_path, "PSNR_total_results_epoch_avgpsnr.csv",
-                 self.best_psnr_epoch, self.best_psnr),
-                (self.ssim_save_path, "SSIM_total_results_epoch_avgssim.csv",
-                 self.best_ssim_epoch, self.best_ssim)):
+        """The best epochs' lines, in the JAX trainer's formats."""
+        lines = []
+        if self.args.is_test_psnr_ssim:
+            lines += [(self.psnr_save_path, "PSNR_total_results_epoch_avgpsnr.csv",
+                       f"Best epoch: {self.best_psnr_epoch},{round(self.best_psnr, 6)}"),
+                      (self.ssim_save_path, "SSIM_total_results_epoch_avgssim.csv",
+                       f"Best epoch: {self.best_ssim_epoch},{round(self.best_ssim, 6)}")]
+        if self.args.is_test_nima:
+            lines.append((self.nima_result_save_path, "NIMA_total_results_epoch_mean_std.csv",
+                          f"Best epoch:{self.best_nima_epoch},{round(self.best_nima, 6)}"))
+        for path, csv, line in lines:
             os.makedirs(path, exist_ok=True)
             with open(os.path.join(path, csv), "a+") as f:
-                f.write(f"Best epoch: {epoch},{round(best, 6)}\n")
+                f.write(line + "\n")
 
     # ------------------------------------------------------------------
     def ckpt_path(self, epoch) -> str:
