@@ -21,7 +21,7 @@ the 256 px train step (batch 10, bf16, the default configuration at full
 width from seeded weights, as ``chip_smoke.py`` phase 6 runs it) as the
 mean ms per step on the host clock around 5 steps after 2 of warm-up;
 and device-only, from CUDA events around replays of a CUDA graph that
-captured 50 calls (40 for C):
+captured 50 calls (40 for C and D):
 
 - kernel A at the canonical forward's five GAM shapes ((8, 512 >> s,
   512 >> s, 32 << s) bf16), summed over the five, each shape's calls going
@@ -29,6 +29,8 @@ captured 50 calls (40 for C):
   in the 50 MB L2;
 - kernel C at (8, 512, 512, 3) f32 -> bf16, round a ring of 4 inputs
   (101 MB);
+- kernel D at the packed forward's exit, res and xp (8, 256, 256, 12)
+  bf16, contiguous, round a ring of 4 input pairs (50 MB);
 - the backward kernels A' and B' at the 256 px train step's shapes (batch
   10, so 20 images through G; bf16), each summed over its shapes (A' the
   five GAM sites (20, 256 >> s, 256 >> s, 32 << s), B' the four upsample
@@ -66,7 +68,8 @@ TRAIN_N = 20  # images through G in a 256 px train step of batch 10
 TRAIN_GAM = [(256 >> s, 32 << s) for s in range(5)]  # (H = W, C) at ga1 .. ga5
 TRAIN_UP = [(256 >> s, 32 << s) for s in range(4, 0, -1)]  # inputs of upsample1 .. 4
 MEASURES = ("packed forward", "canonical forward", "int8_pallas forward", "E ga1",
-            "A five shapes, device-only", "C, device-only", "A' train shapes, device-only",
+            "A five shapes, device-only", "C, device-only", "D, device-only",
+            "A' train shapes, device-only",
             "B' train shapes, device-only", "train step")
 
 
@@ -136,7 +139,7 @@ def worker(root: str, runs: int, device: str = "cuda") -> dict:
     from uegan_tpu_torch.ops.gam_stats import gam_mean_std, gam_mean_std_backward
     from uegan_tpu_torch.ops.packed_conv_int8 import packed_conv_int8
     from uegan_tpu_torch.ops.resize2x import upsample2x_backward
-    from uegan_tpu_torch.ops.s2d_fuse import s2d_convert
+    from uegan_tpu_torch.ops.s2d_fuse import residual_tail_d2s, s2d_convert
 
     if not _build.__file__.startswith(os.path.abspath(root) + os.sep):
         raise RuntimeError(f"imported {_build.__file__}, not the package under {root}")
@@ -162,6 +165,8 @@ def worker(root: str, runs: int, device: str = "cuda") -> dict:
         gam_rings.append([torch.randn((B, h, h, ch), generator=gen, device=dev).to(torch.bfloat16)
                           for _ in range(ring)])
     s2d_ring = [torch.rand((B, IMG, IMG, 3), generator=gen, device=dev) * 2 - 1 for _ in range(4)]
+    d_ring = [[torch.rand((B, IMG // 2, IMG // 2, 12), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2)] for _ in range(4)]
     a_rings, b_rings = backward_sets(gen, dev)
     with torch.inference_mode():
         packed = make_packed_eval(g, pack_generator_params(g.state_dict(), g.conv_dim, device=dev))
@@ -181,6 +186,8 @@ def worker(root: str, runs: int, device: str = "cuda") -> dict:
                 for xs in gam_rings))
             times["C, device-only"].append(
                 graph_ms(ring_calls(lambda i: s2d_convert(s2d_ring[i]), len(s2d_ring)), 40))
+            times["D, device-only"].append(
+                graph_ms(ring_calls(lambda i: residual_tail_d2s(*d_ring[i]), len(d_ring)), 40))
             times["A' train shapes, device-only"].append(sum(
                 graph_ms(ring_calls(lambda i: gam_mean_std_backward(*sets[i]), len(sets)), 20)
                 for sets in a_rings))

@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from uegan_tpu_torch/csrc/ (one nvcc
-a source, started together) and runs nine phases, each of which ends the
+a source, started together) and runs ten phases, each of which ends the
 run with a non-zero exit on failure:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
@@ -27,7 +27,12 @@ run with a non-zero exit on failure:
    shapes (batch 4) and ragged ones, float32 and bfloat16, C in all four
    dtype pairs with NaN and +-inf inputs and on an input 4 bytes past a
    16-byte boundary, D with NaN and +-inf: bit-equal (NaN compared as NaN,
-   and NaN payloads too where C's dtypes are equal).
+   and NaN payloads too where C's dtypes are equal).  The high-resolution
+   path's shapes too: B at up1 and up2 of 2048 px B=4 and of 8192 px B=1
+   (up2 after its 1x1, the commuted order), C at 8192 px (201 M elements),
+   and D on windows of rows of slabs (each image a batch stride apart, as
+   the strip executor's exit reads them: the 4096 px exit, an 8192 px
+   chunk, ragged ones), with NaN and +-inf, bit-equal.
    packed_conv_int8 (E) against its plain version at the ga1 shape, the
    dec4 site (3x3, leaky, multiply, requant) and the dec5_0 site (requant)
    of the 512 px int8 forward (batch 4), a 5x5 12-channel tanh case, ragged
@@ -115,6 +120,27 @@ run with a non-zero exit on failure:
    step at 224 px, batch 32; the bf16 forward and the train steps under
    torch.profiler (busy and idle time, kernels a call).
 
+10. high resolution, at the default generator's full width (seeded as in
+   phase 4): the strip executor at 2048 px B=2 in float32 with TF32 off
+   against the direct packed forward (max |d| <= 1e-4; kernels vs plain
+   <= 1e-4; launches a forward C 1, B 2, D 1, A 0); chunked (2 strips a
+   chunk) against unchunked and entry-chunked against resident chunked at
+   2048 px B=1 (<= 1e-5; D once a chunk); bf16 at 4096 px B=1 (unchunked)
+   and 8192 px B=1 (8 strips a chunk, entry resident) with their peak
+   memory and ms per forward, and at 8192 px the entry-chunked route within
+   one bf16 ulp of the auto route; the int8 and int8_pallas routes at
+   2048 px B=2 (the int8 strips, E launched 0 times: >= 30 dB from the bf16
+   strips, <= 0.02 from each other, kernels vs plain >= 40 dB and <= 0.05);
+   strips against the direct packed forward at 2048 px B=4 in bf16 (ms,
+   img/s and peak memory, in turns); ``--mode test --test_keep_aspect
+   true`` through uegan_tpu_torch.cli.run on photos of 2000 x 3000 (the
+   strips), 1000 x 667 and 512 x 512, two each (PNGs at native size, each
+   >= 35 dB from the f32 plain canonical forward of the same padded input;
+   launches C 3, B 8, D 3), then the Tester's enhance step per size in s
+   per image; and ``--tile_size 512 --tile_overlap 32`` on two photos of
+   1024 x 1536 (>= 35 dB from the host tiling over the f32 plain canonical
+   forward; launches A 20, B 16).
+
 It then prints the kernels' JSON line and, last, the device JSON line.  It
 exits non-zero without a result where CUDA is unavailable or where the
 uegan_tpu_torch package is not beside this file.
@@ -146,6 +172,28 @@ GAM_EXTRA = [(2, 1, 1, c) for c in (3, 5, 12, 32, 512)] + [(1, IMG, IMG, 32)]
 # original (N, H, W, C) images for kernels C and D: the 512 px batch-4 input
 # and ragged ones (narrow words); D takes the packed shapes (N, H/2, W/2, 4C)
 S2D_SHAPES = [(4, IMG, IMG, 3), (2, 12, 10, 3), (1, 2, 2, 5), (1, 4, 6, 1), (1, 4, 6, 3)]
+# phase 10, high resolution: the strip executor's inputs (2048, 4096 and
+# 8192 px), B's inputs on its path (up1 and up2 at 2048 px B=4; at 8192 px
+# up1, and up2 after its 1x1, the commuted order), C's input at 8192 px, and
+# D on windows of rows of slabs, (slabs, rows a slab, Wp, 12 channels, first
+# kept row, kept rows): the 4096 px exit (16 slabs of 140 rows, rows 6 ..
+# 134), an 8192 px chunk of 8 slabs, and ragged ones
+HR = (2048, 4096, 8192)
+HR_UP_SHAPES = [(4, 128, 128, 512), (4, 256, 256, 256), (1, 512, 512, 512),
+                (1, 1024, 1024, 128)]
+HR_S2D_SHAPES = [(1, 8192, 8192, 3)]
+D_WINDOWS = [(16, 140, 2048, 12, 6, 128), (8, 140, 4096, 12, 6, 128), (3, 11, 6, 12, 2, 7),
+             (2, 9, 5, 20, 3, 3)]
+# phase 10's photos (rows, columns), 2 of each: 2000 x 3000 pads to 2048 x
+# 3008 (packed height 1024: the strips), the others take the direct forward;
+# and the tiled photos
+NATIVE_SIZES = [(2000, 3000), (1000, 667), (512, 512)]
+TILE_HW = (1024, 1536)
+TILE, TILE_OVERLAP = 512, 32
+# the strip height the auto route picks at every HR size, and its strips a
+# chunk of the exit at 4096 px (unchunked) and 8192 px
+STRIP_R = 128
+HR_CHUNKS = {4096: 16, 8192: 8}
 KERNELS = ("gam_stats", "upsample2x", "s2d_convert", "residual_tail_d2s", "packed_conv_int8",
            "packed_conv", "gam_stats_bwd", "upsample2x_bwd")
 # the train slice: 256 px crops of 512, batch 10, so G runs on 20 images
@@ -481,14 +529,16 @@ def ring_calls(fn, ring: int):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route both generator forwards through the kernels' plain PyTorch versions."""
-    from uegan_tpu_torch.infer import packed, quantized
+    """Route the generator's forwards (canonical, packed, int8, strips)
+    through the kernels' plain PyTorch versions."""
+    from uegan_tpu_torch.infer import packed, quantized, strips
     from uegan_tpu_torch.models import blocks, generator
     from uegan_tpu_torch.ops import gam_stats, packed_conv_int8, resize2x, s2d_fuse
 
     swaps = [(blocks, "gam_mean_std", gam_stats.plain),
              (generator, "upsample2x", resize2x.plain), (packed, "upsample2x", resize2x.plain)]
-    for mod in (packed, quantized):
+    swaps.append((strips, "upsample2x", resize2x.plain))
+    for mod in (packed, quantized, strips):
         swaps += [(mod, "s2d_convert", s2d_fuse.plain_s2d_convert),
                   (mod, "residual_tail_d2s", s2d_fuse.plain_residual_tail_d2s)]
     swaps.append((quantized, "packed_conv_int8", packed_conv_int8.plain_packed_conv_int8))
@@ -573,6 +623,7 @@ def phase_kernels(dev) -> dict:
     worst = {"gam_stats": [0.0, 0.0], "upsample2x": [0.0, 0.0]}  # f32, bf16 max abs
     cases = [("gam_stats", (4, h, h, c)) for h, c in GAM_SHAPES]
     cases += [("upsample2x", (4, h, h, c)) for h, c in UP_SHAPES]
+    cases += [("upsample2x", shape) for shape in HR_UP_SHAPES]
     cases += [(k, s) for s in RAGGED for k in ("gam_stats", "upsample2x")]
     cases += [("gam_stats", s) for s in GAM_EXTRA]
     cases += [("gam_stats misaligned", (4, 64, 64, 32))]
@@ -652,7 +703,7 @@ def phase_s2d_kernels(dev) -> dict:
         flat[:k] = torch.tensor(bits[:k], dtype=as_int, device=dev)
         return x
 
-    for n, h, w, c in S2D_SHAPES:
+    for n, h, w, c in S2D_SHAPES + HR_S2D_SHAPES:
         x = torch.rand((n, h, w, c), generator=gen, device=dev) * 2 - 1
         for tin in (f32, bf16):
             for tout in (f32, bf16):
@@ -692,6 +743,26 @@ def phase_s2d_kernels(dev) -> dict:
             if int(torch.isnan(want).sum()) < min(k, 4):
                 raise AssertionError(f"the NaN case of {packed_shape} has too few NaN: {want}")
             check("residual_tail_d2s", packed_shape, f"{tag[dt]} with NaN/inf", got, want)
+    # D on windows of rows of slabs, as the strip executor's exit reads them
+    # (res a batch stride of a whole slab apart; xp contiguous, or a window
+    # too), NaN and +-inf in both
+    for ns, rows, wp, c4, lo, kept in D_WINDOWS:
+        for dt in (f32, bf16):
+            res = (torch.rand((ns, rows, wp, c4), generator=gen, device=dev) * 4 - 2).to(dt)
+            xpw = (torch.rand((ns, rows, wp, c4), generator=gen, device=dev) * 2 - 1).to(dt)
+            res[:, lo, 0, :3] = torch.tensor([math.nan, math.inf, -math.inf], device=dev, dtype=dt)
+            xpw[:, lo, 0, 3:6] = torch.tensor([math.nan, math.inf, -math.inf], device=dev,
+                                              dtype=dt)
+            window = res[:, lo:lo + kept]
+            xp_flat = xpw[:, lo:lo + kept].contiguous()
+            for what, xin in (("contiguous xp", xp_flat), ("xp a window too",
+                                                           xpw[:, lo:lo + kept])):
+                got = s2d_fuse.residual_tail_d2s(window, xin)
+                want = s2d_fuse.plain_residual_tail_d2s(window.contiguous(), xin.contiguous())
+                check("residual_tail_d2s", (ns, rows, wp, c4),
+                      f"{tag[dt]} rows {lo}..{lo + kept} of each slab, {what}, NaN/inf",
+                      got, want)
+            del res, xpw, window, xp_flat
     return worst
 
 
@@ -1804,18 +1875,23 @@ def phase_profile(dev, card: str) -> None:
         int8 = quantized.make_int8_eval(g, quantized.build_quant_tables(g, calib_batch=x),
                                         use_pallas=True)
         for name, fn in (("canonical", g), ("packed", packed_forward(g)), ("int8_pallas", int8)):
-            r = profile(lambda: fn(x))
-            log("8 profile", f"{name} forward {IMG}px B=8 bf16 under torch.profiler: wall "
-                             f"{r['wall_ms']:.3f} ms per forward, device busy {r['busy_ms']:.3f} "
-                             f"ms, idle share {r['idle_share']:.3f} [{card}]")
-            log("8 profile", "| bucket | ms per forward | kernels per forward | share of busy |")
-            for k, (ms, n) in sorted(r["buckets"].items(), key=lambda kv: -kv[1][0]):
-                log("8 profile", f"| {k} | {ms:.3f} | {n:g} | {ms / r['busy_ms']:.1%} |")
-            seen = set()
-            for us, kname in r["longest"]:
-                if kname not in seen and len(seen) < 8:
-                    seen.add(kname)
-                    log("8 profile", f"longest: {us:9.1f} us [{bucket_of(kname)}] {kname[:120]}")
+            log_profile("8 profile", f"{name} forward {IMG}px B=8 bf16", profile(lambda: fn(x)),
+                        card)
+
+
+def log_profile(phase: str, what: str, r: dict, card: str) -> None:
+    """Print a profile() result: wall, busy and idle, the buckets as a
+    table, and the 8 longest distinct kernels."""
+    log(phase, f"{what} under torch.profiler: wall {r['wall_ms']:.3f} ms per forward, device "
+               f"busy {r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f} [{card}]")
+    log(phase, "| bucket | ms per forward | kernels per forward | share of busy |")
+    for k, (ms, n) in sorted(r["buckets"].items(), key=lambda kv: -kv[1][0]):
+        log(phase, f"| {k} | {ms:.3f} | {n:g} | {ms / r['busy_ms']:.1%} |")
+    seen = set()
+    for us, kname in r["longest"]:
+        if kname not in seen and len(seen) < 8:
+            seen.add(kname)
+            log(phase, f"longest: {us:9.1f} us [{bucket_of(kname)}] {kname[:120]}")
 
 
 def nima_images(n: int, hw: int, rng):
@@ -1986,6 +2062,322 @@ def phase_nima(dev, card: str, tmp: str) -> None:
         raise AssertionError("the f32 NIMA train step left the TF32 flags changed")
 
 
+def peak_gib(fn):
+    """(fn's result, the device memory fn took at its peak beyond what was
+    allocated before it, in GiB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def strip_counts(s: int, cs: int) -> dict:
+    """One strip forward's launches: C at the entry, B at up1 and up2, D once
+    a chunk of the exit."""
+    return {**dict.fromkeys(KERNELS, 0), "s2d_convert": 1, "upsample2x": 2,
+            "residual_tail_d2s": s // cs}
+
+
+def write_pth(root: str, sd: dict) -> None:
+    import torch
+
+    models = os.path.join(root, "UEGAN-FiveK", "models")
+    os.makedirs(models)
+    torch.save({"G_net": sd, "D_net": {}, "epoch": 92.0, "g_optimizer": {},
+                "d_optimizer": {}, "lr_scheduler_g": {}, "lr_scheduler_d": {}},
+               os.path.join(models, "UEGAN-FiveK_rahinge_92.pth"))
+
+
+def highres_cli(tmp: str, what: str, test_dir: str, sd: dict, extra: list) -> tuple:
+    """``--mode test`` at native size through uegan_tpu_torch.cli.run (bf16,
+    batch 2, NIMA and PSNR/SSIM on); (its result, launches, seconds, the
+    result PNGs by name)."""
+    import torch
+
+    from uegan_tpu_torch import cli
+    from uegan_tpu_torch.utils.image_io import read_png_rgb
+
+    root = os.path.join(tmp, f"results_{what}")
+    write_pth(root, sd)
+    argv = ["--mode", "test", "--test_img_dir", test_dir,
+            "--test_label_dir", os.path.join(test_dir, "label") + os.sep,
+            "--save_root_dir", root, "--g_conv_dim", str(CD), "--val_batch_size", "2",
+            "--pretrained_model", "92", "--is_test_psnr_ssim", "true",
+            "--compute_dtype", "bfloat16", "--num_workers", "4",
+            "--test_keep_aspect", "true"] + extra
+    t0 = time.time()
+    reset_counts()
+    res = cli.run(argv)
+    torch.cuda.synchronize()
+    launched, secs = counts(), time.time() - t0
+    out_dir = os.path.join(root, "UEGAN-FiveK", "test", "test_results")
+    pngs = {f.split("_92.00_")[0]: read_png_rgb(os.path.join(out_dir, f))
+            for f in sorted(os.listdir(out_dir))}
+    if not all(math.isfinite(res[k]) for k in ("psnr", "ssim", "nima")):
+        raise AssertionError(f"--mode test ({what}): metrics not finite: {res}")
+    return res, launched, secs, pngs
+
+
+def phase_highres(dev, card: str, tmp: str) -> dict:
+    """Phase 10: the strip executor, native resolution and overlap tiles at
+    the default generator's full width (seeded as seeded_generator); the
+    launches of the main paths it drives (strips, strips_int8, tiles)."""
+    import numpy as np
+    import torch
+
+    from uegan_tpu_torch.config import Config
+    from uegan_tpu_torch.infer import native, packed, quantized, strips, tiles
+    from uegan_tpu_torch.utils.image_io import normalize_u8, quantize_u8, read_png_rgb
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    rand = lambda shape: torch.rand(shape, generator=gen, device=dev) * 2 - 1
+    big = HR[0]
+    launches = {}
+
+    def maxd(a, b) -> float:
+        return float((a.float() - b.float()).abs().max())
+
+    # -- strips against the direct packed forward: 2048 px, B=2, f32, TF32 off
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g32, sd = seeded_generator(torch.float32, dev)
+    r = strips.pick_strip_rows(big // 2, 2)
+    sb = big // 2 // STRIP_R  # strips at 2048 px
+    if r != STRIP_R:
+        raise AssertionError(f"pick_strip_rows({big // 2}, 2) = {r}, want {STRIP_R}")
+    auto = packed.make_fast_eval(g32, Config(compute_dtype="float32"))
+    direct = packed.make_fast_eval(g32, Config(compute_dtype="float32", strip_rows=-1))
+    x = rand((2, big, big, 3))
+    with torch.inference_mode():
+        want = direct(x)
+        reset_counts()
+        got = auto(x)
+        torch.cuda.synchronize()
+        run = counts()
+        with plain_versions():
+            plain = auto(x)
+        torch.cuda.synchronize()
+    check_counts(f"one strip forward ({big} px, B=2, f32)", run, strip_counts(sb, sb))
+    if got.shape != x.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"strips output {tuple(got.shape)}, finite "
+                             f"{bool(torch.isfinite(got).all())}")
+    d, dk = maxd(got, want), maxd(got, plain)
+    log("10 high-res", f"strips cd32 {big}px B=2 f32 (TF32 off), r = {r}, {sb} strips: vs the direct "
+                       f"packed forward max abs {d:.3e} (limit 1e-4); kernels vs plain max abs "
+                       f"{dk:.3e} (limit 1e-4); launches a forward {run}")
+    if d > 1e-4 or dk > 1e-4:
+        raise AssertionError(f"strips vs direct {d}, kernels vs plain {dk}")
+    del x, want, got, plain, auto, direct
+
+    # -- chunked against unchunked, entry-chunked against resident chunked:
+    # 2048 px, B=1, f32
+    x = rand((1, big, big, 3))
+    un = strips.make_strip_fast_eval(g32, r, -1)(x)
+    reset_counts()
+    ch = strips.make_strip_fast_eval(g32, r, 2)(x)
+    torch.cuda.synchronize()
+    run = counts()
+    ec = strips.make_strip_fast_eval(g32, r, 2, entry_chunked=True)(x)
+    check_counts(f"one chunked strip forward ({sb // 2} chunks)", run, strip_counts(sb, 2))
+    d_ch, d_ec = maxd(ch, un), maxd(ec, ch)
+    log("10 high-res", f"strips {big}px B=1 f32: chunked (2 strips a chunk) vs unchunked max abs "
+                       f"{d_ch:.3e}, entry-chunked vs resident chunked max abs {d_ec:.3e} "
+                       f"(bit-equal {bool(torch.equal(ec, ch))}; limits 1e-5); launches {run}")
+    if d_ch > 1e-5 or d_ec > 1e-5:
+        raise AssertionError(f"chunked {d_ch}, entry-chunked {d_ec}")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    del g32, x, un, ch, ec
+
+    # -- memory modes at full size, bf16: 4096 px (unchunked) and 8192 px
+    # (chunked, 8 strips a chunk, the entry resident) against entry_chunked
+    gb, _ = seeded_generator(torch.bfloat16, dev)
+    fast = packed.make_fast_eval(gb, Config())
+    timing = {}
+    for size in HR[1:]:
+        s, cs = size // 2 // STRIP_R, HR_CHUNKS[size]
+        if strips.pick_strip_rows(size // 2, 1) != STRIP_R or strips.pick_strip_chunks(
+                1, s, STRIP_R + 2 * strips._M_EXIT, size // 2) != cs:
+            raise AssertionError(f"{size} px routes differently than r = {STRIP_R}, {cs} "
+                                 f"strips a chunk")
+        x = rand((1, size, size, 3))
+        reset_counts()
+        y, peak = peak_gib(lambda: fast(x))
+        run = counts()
+        check_counts(f"one strip forward ({size} px, B=1)", run, strip_counts(s, cs))
+        if y.shape != x.shape or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{size} px output {tuple(y.shape)} not finite")
+        ms = [cuda_ms(lambda: fast(x), iters=2, warmup=1) for _ in range(2)]
+        timing[size] = (sum(ms) / 2, peak)
+        msg = (f"strips {size}px B=1 bf16 (auto: r = {STRIP_R}, {s} strips, {cs} a chunk): "
+               f"{timing[size][0]:.2f} ms ({1000 / timing[size][0]:.3f} img/s; runs "
+               f"{[round(v, 2) for v in ms]}), peak {peak:.2f} GiB above its input; "
+               f"launches {run} [{card}]")
+        if size == HR[2]:
+            yec, peak_ec = peak_gib(lambda: strips.make_strip_fast_eval(
+                gb, STRIP_R, 0, entry_chunked=True)(x))
+            # one ulp of the larger of the two, counted from 2^-6 up (a
+            # difference at an output near 0 is a few ulp of a larger sum)
+            ulp = bf16_ulp(torch.maximum(y.abs(), yec.abs())).clamp(min=2.0 ** -13)
+            ulps = ((yec.float() - y.float()).abs() / ulp).max()
+            msg += (f"; entry-chunked peak {peak_ec:.2f} GiB, vs the auto route max "
+                    f"{float(ulps):.2f} bf16 ulp of the output (limit 1), max abs {maxd(yec, y):.3e}")
+            if float(ulps) > 1.0:
+                raise AssertionError(f"entry-chunked differs from the resident route by "
+                                     f"{float(ulps)} ulp")
+            del yec
+        log("10 high-res", msg)
+        del x, y
+
+    # -- int8 strips: 2048 px B=2 bf16, against the bf16 strips; int8_pallas
+    # takes the same route (kernel E on no strip)
+    x = rand((2, big, big, 3))
+    with torch.inference_mode():
+        bf = fast(x)
+        i8 = packed.make_fast_eval(gb, Config(quantized_inference="int8"), calib_batch=x)
+        i8p = packed.make_fast_eval(gb, Config(quantized_inference="int8_pallas"), calib_batch=x)
+        yi = i8(x)
+        reset_counts()
+        yp = i8p(x)
+        torch.cuda.synchronize()
+        launches["strips_int8"] = counts()
+        with plain_versions():
+            yplain = i8p(x)
+    check_counts("one int8_pallas strip forward", launches["strips_int8"], strip_counts(sb, sb))
+    p, pk_ = psnr_pm1(yi, bf), psnr_pm1(yp, yplain)
+    log("10 high-res", f"int8 strips {big}px B=2 bf16: vs the bf16 strips {p:.2f} dB (limit >= 30), "
+                       f"max abs {maxd(yi, bf):.4f}; int8_pallas vs int8 max abs {maxd(yp, yi):.3e} "
+                       f"(limit 0.02); "
+                       f"kernels vs plain {pk_:.2f} dB (limit >= 40), max abs {maxd(yp, yplain):.3e} "
+                       f"(limit 0.05); launches {launches['strips_int8']}")
+    if p < 30.0 or maxd(yp, yi) > 0.02 or pk_ < 40.0 or maxd(yp, yplain) > 0.05:
+        raise AssertionError(f"int8 strips: {p:.2f} dB, int8_pallas vs int8 {maxd(yp, yi)}, "
+                             f"kernels vs plain {pk_:.2f} dB")
+    del x, bf, yi, yp, yplain, i8, i8p
+
+    # -- timing: strips against the direct packed forward, 2048 px B=4, bf16
+    x = rand((4, big, big, 3))
+    direct = packed.make_fast_eval(gb, Config(strip_rows=-1))
+    steps = {"strips": fast, "direct": direct}
+    peaks = {k: peak_gib(lambda: steps[k](x))[1] for k in steps}
+    t = {k: [] for k in steps}
+    for k in ("strips", "direct", "direct", "strips"):
+        t[k].append(cuda_ms(lambda: steps[k](x), iters=3, warmup=1))
+    for k in steps:
+        ms = sum(t[k]) / 2
+        log("10 high-res", f"{k} packed forward {big}px B=4 bf16: {ms:.2f} ms/forward, "
+                           f"{4000 / ms:.2f} img/s (runs {[round(v, 2) for v in t[k]]}), peak "
+                           f"{peaks[k]:.2f} GiB above its input [{card}]")
+    faster = min(t, key=lambda k: sum(t[k]))
+    log("10 high-res", f"at {big}px B=4 the {faster} forward is the faster on this card")
+    for k in steps:  # where each one's device time goes
+        log_profile("10 high-res", f"{k} packed forward {big}px B=4 bf16",
+                    profile(lambda: steps[k](x), iters=3, warmup=1), card)
+    del x, direct, steps
+
+    # -- --mode test --test_keep_aspect true on photos of native sizes
+    rng = np.random.default_rng(SEED)
+    test_dir = os.path.join(tmp, "native", "test")
+    names = {}
+    for i, (h, w) in enumerate(NATIVE_SIZES):
+        for n in write_pairs(test_dir, ("label", "raw"), 2, (h, w), rng, stem=f"n{i}_"):
+            names[n] = (h, w)
+    _, sd_cpu = seeded_generator(torch.float32, "cpu")
+    res, run, secs, pngs = highres_cli(tmp, "native", test_dir, sd_cpu, [])
+    launches["strips"] = run
+    # 2 batches direct (1024 x 704 and 512 x 512 padded, hp < 1024), one strips
+    check_counts("--mode test --test_keep_aspect (3 batches)", run, {
+        **dict.fromkeys(KERNELS, 0), "s2d_convert": 3, "upsample2x": 8, "residual_tail_d2s": 3})
+    g32, _ = seeded_generator(torch.float32, dev)
+    torch.backends.cudnn.allow_tf32 = False
+    worst = math.inf
+    for i, (h, w) in enumerate(NATIVE_SIZES):
+        group = [n for n in sorted(names) if n.startswith(f"n{i}_")]
+        raw = np.stack([read_png_rgb(os.path.join(test_dir, "raw", n + ".png")) for n in group])
+        padded, hw = native.pad_to_grid(raw)
+        with torch.inference_mode(), plain_versions():
+            ref = quantize_u8(g32(normalize_u8(torch.from_numpy(padded).to(dev)))).cpu().numpy()
+        ref = native.crop_back(ref, hw)
+        for j, n in enumerate(group):
+            if pngs[n].shape != (h, w, 3):
+                raise AssertionError(f"{n}: PNG {pngs[n].shape}, native {(h, w, 3)}")
+            mse = float(((pngs[n].astype(np.float64) - ref[j]) ** 2).mean())
+            worst = min(worst, 10 * math.log10(255.0 ** 2 / max(mse, 1e-12)))
+    torch.backends.cudnn.allow_tf32 = True
+    log("10 high-res", f"--mode test --test_keep_aspect true bf16, {len(names)} photos "
+                       f"({', '.join(f'{h}x{w}' for h, w in NATIVE_SIZES)}, 2 each; padded "
+                       f"to the 64-px grid): PNGs at native size, each >= {worst:.2f} dB from "
+                       f"the f32 plain canonical forward of the same padded input (limit 35); "
+                       f"PSNR {res['psnr']:.4f} SSIM {res['ssim']:.4f} NIMA {res['nima']:.4f}; "
+                       f"launches {run}; {secs:.1f} s, {secs / len(names):.3f} s per image "
+                       f"(loader, forwards, PNGs, NIMA, PSNR/SSIM) [{card}]")
+    if worst < 35.0:
+        raise AssertionError(f"native-resolution PNGs only {worst:.2f} dB from the f32 forward")
+
+    # -- the enhance step per size, s per image (pad, forward, crop; 1-byte
+    # pixels each way), the Tester's own enhance_u8
+    from uegan_tpu_torch.train.tester import Tester
+
+    cfg = Config(mode="test", g_conv_dim=CD, compute_dtype="bfloat16", val_batch_size=2,
+                 test_keep_aspect=True, save_root_dir=os.path.join(tmp, "results_native"))
+    tester = Tester({}, cfg, dev)
+    tester.G.load_state_dict(sd_cpu)
+    for i, (h, w) in enumerate(NATIVE_SIZES):
+        group = [n for n in sorted(names) if n.startswith(f"n{i}_")]
+        raw = np.stack([read_png_rgb(os.path.join(test_dir, "raw", n + ".png")) for n in group])
+        native.enhance_native(tester.enhance_u8, raw)  # warm-up
+        per = []
+        for _ in range(2):
+            t0 = time.time()
+            native.enhance_native(tester.enhance_u8, raw)
+            per.append((time.time() - t0) / len(group))
+        log("10 high-res", f"enhance_native(Tester.enhance_u8) {h}x{w} B=2 bf16: "
+                           f"{sum(per) / 2:.4f} s per image (runs {[round(v, 4) for v in per]}) "
+                           f"[{card}]")
+
+    # -- --tile_size 512 --tile_overlap 32 on 2 photos of 1024 x 1536
+    tile_dir = os.path.join(tmp, "tiles", "test")
+    tnames = write_pairs(tile_dir, ("label", "raw"), 2, TILE_HW, rng, stem="t")
+    res, run, secs, pngs = highres_cli(tmp, "tiles", tile_dir, sd_cpu,
+                                       ["--tile_size", str(TILE), "--tile_overlap",
+                                        str(TILE_OVERLAP)])
+    launches["tiles"] = run
+    # each image's tiles go through the canonical forward 8 at a time (the
+    # last batch padded), each forward A 5, B 4
+    ys, xs = tiles._grid(*TILE_HW, TILE, TILE_OVERLAP)
+    fwd = 2 * -(-len(ys) * len(xs) // tiles.TILE_BATCH)
+    check_counts(f"--mode test --tile_size {TILE} (2 images, {len(ys) * len(xs)} tiles each)",
+                 run, {**dict.fromkeys(KERNELS, 0), "gam_stats": 5 * fwd, "upsample2x": 4 * fwd})
+    torch.backends.cudnn.allow_tf32 = False
+    worst = math.inf
+    for n in tnames:
+        raw = read_png_rgb(os.path.join(tile_dir, "raw", n + ".png"))
+
+        def step(b):
+            with torch.inference_mode(), plain_versions():
+                return g32(torch.from_numpy(np.ascontiguousarray(b)).to(dev)).float().cpu().numpy()
+        img = (raw.astype(np.float32) / 255.0 - 0.5) / 0.5
+        ref = tiles.enhance_tiled(step, img, TILE, TILE_OVERLAP)
+        ref = np.clip(np.rint(np.clip((ref + 1.0) / 2.0, 0.0, 1.0) * 255.0), 0, 255)
+        if pngs[n].shape != TILE_HW + (3,):
+            raise AssertionError(f"{n}: tiled PNG {pngs[n].shape}")
+        mse = float(((pngs[n].astype(np.float64) - ref) ** 2).mean())
+        worst = min(worst, 10 * math.log10(255.0 ** 2 / max(mse, 1e-12)))
+    torch.backends.cudnn.allow_tf32 = True
+    log("10 high-res", f"--mode test --tile_size {TILE} --tile_overlap {TILE_OVERLAP} bf16, 2 "
+                       f"photos {TILE_HW[0]}x{TILE_HW[1]} ({len(ys) * len(xs)} tiles each): "
+                       f"PNGs >= {worst:.2f} dB from "
+                       f"the host tiling over the f32 plain canonical forward (limit 35); "
+                       f"launches {run}; {secs:.1f} s [{card}]")
+    if worst < 35.0:
+        raise AssertionError(f"tiled PNGs only {worst:.2f} dB from the f32 tiling")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2035,6 +2427,8 @@ def main() -> int:
     phase_profile(dev, card)
     with tempfile.TemporaryDirectory(prefix="uegan_smoke_nima_") as tmp:
         phase_nima(dev, card, tmp)
+    with tempfile.TemporaryDirectory(prefix="uegan_smoke_highres_") as tmp:
+        launches.update(phase_highres(dev, card, tmp))
 
     src = {"gam_stats": ("uegan_tpu_torch/csrc/gam_stats.cu",
                          "uegan_tpu/ops/pallas/gam_stats.py:66"),

@@ -281,6 +281,31 @@ def test_upsample2x_matches_jax(shape):
         np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_tail_d2s_takes_a_window_of_rows(dtype):
+    """Kernel D reads the strip executor's slabs in place: on a window of
+    rows of each slab (images a batch stride apart), its CPU path, the plain
+    version, equals it on the ``.contiguous()`` copy bit for bit, NaN and
+    +-inf included; the wrapper still refuses other strides."""
+    from uegan_tpu_torch.ops.s2d_fuse import residual_tail_d2s
+
+    rng = np.random.default_rng(13)
+    res = torch.from_numpy(rng.uniform(-2, 2, (3, 11, 6, 12)).astype(np.float32)).to(dtype)
+    xp = torch.from_numpy(rng.uniform(-1, 1, (3, 11, 6, 12)).astype(np.float32)).to(dtype)
+    res[:, 3, 0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")], dtype=dtype)
+    xp[:, 4, 1, :2] = torch.tensor([float("nan"), -float("inf")], dtype=dtype)
+    window, xwin = res[:, 2:9], xp[:, 2:9]
+    assert not window.is_contiguous() and window[0].is_contiguous()
+    got = residual_tail_d2s(window, xwin)
+    want = residual_tail_d2s(window.contiguous(), xwin.contiguous())
+    assert got.shape == (3, 14, 12, 3) and got.is_contiguous()
+    as_int = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(as_int), want.view(as_int))
+    assert int(torch.isnan(got).sum()) >= 1
+    with pytest.raises(ValueError, match="contiguous"):
+        residual_tail_d2s(res[:, :, 1:5], xp[:, :, 1:5])  # a window of columns
+
+
 def test_cpu_dispatch_and_refusals():
     """A CPU tensor takes the plain path (no launch is counted); inputs the
     kernels do not take raise; asking for CUDA without a card raises."""
@@ -305,6 +330,12 @@ def test_cpu_dispatch_and_refusals():
     assert resolve_device("cpu").type == "cpu"
 
 
+# options the port raises for, naming the ROADMAP item that ports them; the
+# high-resolution options (tiles, native resolution, a forced strip height)
+# are ported and pass
+OUTSIDE_THE_PORT = {"g_norm_fun", "mesh_spatial", "g_use_sn"}
+
+
 @pytest.mark.parametrize("flags", [
     {"mode": "train", "g_norm_fun": "InstanceNorm"}, {"tile_size": 512},
     {"mesh_spatial": 2},
@@ -321,8 +352,12 @@ def test_options_outside_the_slice_raise(flags):
     check_supported(Config(mode="test", packed_inference=False, strip_rows=8))
     for qi in ("int8", "int8_pallas"):
         check_supported(Config(mode="test", quantized_inference=qi))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_supported(Config(**{"mode": "test", **flags}))
+    cfg = Config(**{"mode": "test", **flags})
+    if OUTSIDE_THE_PORT & set(flags):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            check_supported(cfg)
+    else:
+        check_supported(cfg)
 
 
 @pytest.mark.parametrize("argv", [[], ["--mode", "test", "--packed_inference", "false",
@@ -377,7 +412,9 @@ def test_port_imports_no_jax():
             "uegan_tpu_torch.convert.from_flax, uegan_tpu_torch.utils.checkpoint, "
             "uegan_tpu_torch.models.nima, uegan_tpu_torch.metrics.nima, "
             "uegan_tpu_torch.metrics.nima_cli, uegan_tpu_torch.losses.extra, "
-            "uegan_tpu_torch.nima_train.cli, uegan_tpu_torch.nima_train.train; "
+            "uegan_tpu_torch.nima_train.cli, uegan_tpu_torch.nima_train.train, "
+            "uegan_tpu_torch.infer.strips, uegan_tpu_torch.infer.native, "
+            "uegan_tpu_torch.infer.tiles; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'uegan_tpu') or m.startswith('jax_')); "
             "assert not bad, bad")

@@ -307,8 +307,8 @@ def test_cached_constants_serve_autograd_after_inference_mode():
 
 def test_make_fast_eval_routing(weights):
     """Packed for the default G with --packed_inference true (int8 under
-    --quantized_inference int8); the canonical step otherwise; options of
-    later slices raise."""
+    --quantized_inference int8); the canonical step otherwise; the strips
+    where their gate passes, else the direct packed forward."""
     from uegan_tpu_torch.config import Config
 
     sd, _, g = weights
@@ -327,10 +327,16 @@ def test_make_fast_eval_routing(weights):
     int8_fn = packed.make_fast_eval(g, Config(quantized_inference="int8"), calib_batch=x)
     assert int8_fn(x).dtype == torch.bfloat16  # the int8 route: bf16 whatever G's dtype
     torch.testing.assert_close(int8_fn(x).float(), packed_fn(x), rtol=0, atol=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        packed.make_fast_eval(g, Config(strip_rows=8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        packed_fn(torch.zeros(1, 2048, 32, 3))
+    # a forced strip height the strips cannot take (not > 12) runs the
+    # direct packed forward, as in JAX
+    torch.testing.assert_close(packed.make_fast_eval(g, Config(strip_rows=8))(x), packed_fn(x),
+                               rtol=0, atol=0)
+    # a packed height of 1024 takes the strips (r = 128) under the default
+    # --strip_rows 0, and gives the direct forward's values
+    x2k = torch.from_numpy(np.random.default_rng(10).uniform(-1, 1, (1, 2048, 32, 3))
+                           .astype(np.float32))
+    direct = packed.make_fast_eval(g, Config(strip_rows=-1))(x2k)
+    torch.testing.assert_close(packed_fn(x2k), direct, rtol=0, atol=1e-5)
 
 
 def test_cli_test_mode_packed_matches_jax(weights, tmp_path, monkeypatch):

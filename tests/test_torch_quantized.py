@@ -426,8 +426,10 @@ def test_make_fast_eval_takes_the_int8_route(weights):
         got = packed.make_fast_eval(g, Config(quantized_inference=qi), calib_batch=x)(x)
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        packed.make_fast_eval(g, Config(quantized_inference="int8", strip_rows=8))
+    # a forced strip height the strips cannot take runs the direct int8 forward
+    got = packed.make_fast_eval(g, Config(quantized_inference="int8", strip_rows=8),
+                                calib_batch=x)(x)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_cli_test_mode_int8_pallas_matches_jax(weights, tmp_path, monkeypatch):

@@ -16,7 +16,6 @@ from typing import Dict, List, Optional
 import torch
 
 from uegan_tpu_torch.config import Config, get_config
-from uegan_tpu_torch.infer.packed import check_packed_options
 from uegan_tpu_torch.models.blocks import ROADMAP_SN
 
 
@@ -34,11 +33,8 @@ def resolve_device(name: Optional[str] = None) -> torch.device:
 def check_supported(args: Config) -> None:
     """Raise for each option outside this slice of the port."""
     unsupported = [
-        (args.tile_size > 0, "--tile_size > 0: tiled inference is ROADMAP queue 1 item 8"),
-        (args.mesh_spatial > 1, "--mesh_spatial > 1: spatial sharding is ROADMAP queue 1 "
-                                "items 8-9"),
-        (args.test_keep_aspect, "--test_keep_aspect true: native-resolution inference is "
-                                "ROADMAP queue 1 item 8"),
+        (args.mesh_spatial > 1, "--mesh_spatial > 1: spatial sharding across devices is "
+                                "ROADMAP queue 1 items 8-9"),
         (args.g_use_sn, ROADMAP_SN),
         (args.param_dtype != "float32", f"--param_dtype {args.param_dtype}: the port keeps "
                                         "float32 parameters"),
@@ -60,8 +56,6 @@ def check_supported(args: Config) -> None:
                 raise NotImplementedError(why)
     elif args.mode != "test":
         raise ValueError(f"unknown mode [{args.mode}]")
-    if args.mode == "test" and args.packed_inference:
-        check_packed_options(args)
 
 
 def main(args: Config) -> Dict:
@@ -97,6 +91,9 @@ def main(args: Config) -> Dict:
             batch_size=args.val_batch_size,
             num_workers=args.num_workers,
             emit=emit,
+            # native sizes, batches of one size; the Tester pads to /16 and
+            # crops back (infer/native.py)
+            keep_native=args.test_keep_aspect,
         )
     }
     return Tester(loaders, args, device).test()

@@ -40,8 +40,11 @@
 // D keeps the flat grid: each thread takes kPer elements kThreads apart of
 // the flat output, its loads issued before any store, and each element's two
 // index divisions take a multiply-high and a shift (FastDiv: the card has
-// no integer divide instruction).  Offsets are 32-bit: the wrappers refuse
-// tensors of 2^31 elements or more.
+// no integer divide instruction).  D's inputs may be windows of rows of each
+// image (the strip executor's exit reads rows m .. m + r of every slab):
+// then a third division finds the image, which starts a batch stride in, a
+// 64-bit product.  Offsets within an image and of the output are 32-bit,
+// and the wrappers refuse tensors of 2^31 elements or more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -170,12 +173,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // out (N, 2Hp, 2Wp, C); flat output index o = orow * row_len + j, where
-// orow = n * 2Hp + oy reads packed row orow / 2 at phase pi = orow & 1
-template <typename T>
+// orow = n * 2Hp + oy reads packed row prow = orow / 2 at phase pi = orow & 1.
+// With kBatchStrides, image n = prow / Hp of res and xp starts n * res_batch
+// and n * xp_batch elements in (their images are each contiguous, a batch
+// stride apart); without, both are contiguous batches and prow indexes them
+// directly, one division fewer an element.
+template <typename T, bool kBatchStrides>
 __global__ void __launch_bounds__(kThreads)
     residual_tail_d2s_kernel(const T* __restrict__ res, const T* __restrict__ xp,
                              T* __restrict__ out, unsigned total, unsigned wp, unsigned c,
-                             FastDiv by_row, FastDiv by_pair) {
+                             FastDiv by_row, FastDiv by_pair, FastDiv by_image,
+                             int64_t res_batch, int64_t xp_batch) {
   const unsigned c2 = 2 * c;
   const unsigned base = blockIdx.x * (kThreads * kPer) + threadIdx.x;
   float t[kPer];
@@ -186,8 +194,16 @@ __global__ void __launch_bounds__(kThreads)
       const unsigned orow = by_row.div(o);  // row_len = Wp * 2C
       const unsigned j = o - orow * by_row.d;
       const unsigned wq = by_pair.div(j);  // 2C
-      const unsigned src = ((orow >> 1) * wp + wq) * (2 * c2) + (orow & 1) * c2 + (j - wq * c2);
-      t[i] = to_f32(res[src]) + to_f32(xp[src]);
+      const unsigned prow = orow >> 1;
+      const unsigned in_row = wq * (2 * c2) + (orow & 1) * c2 + (j - wq * c2);
+      if constexpr (kBatchStrides) {
+        const unsigned img = by_image.div(prow);  // Hp
+        const unsigned in_img = (prow - img * by_image.d) * wp * (2 * c2) + in_row;
+        t[i] = to_f32(res[img * res_batch + in_img]) + to_f32(xp[img * xp_batch + in_img]);
+      } else {
+        const unsigned src = prow * wp * (2 * c2) + in_row;
+        t[i] = to_f32(res[src]) + to_f32(xp[src]);
+      }
     }
   }
 #pragma unroll
@@ -224,13 +240,16 @@ int launch_s2d(const void* x, void* out, int64_t n, int64_t h, int64_t w, int64_
 
 template <typename T>
 int launch_tail(const void* res, const void* xp, void* out, int64_t n, int64_t hp, int64_t wp,
-                int64_t c, cudaStream_t stream) {
-  const int64_t total = n * hp * wp * 4 * c;
+                int64_t c, int64_t res_batch, int64_t xp_batch, cudaStream_t stream) {
+  const int64_t image = hp * wp * 4 * c;
+  const int64_t total = n * image;
   if (total == 0) return 0;
-  residual_tail_d2s_kernel<T><<<blocks_for(total), kThreads, 0, stream>>>(
+  const bool strided = n > 1 && (res_batch != image || xp_batch != image);
+  auto kernel = strided ? residual_tail_d2s_kernel<T, true> : residual_tail_d2s_kernel<T, false>;
+  kernel<<<blocks_for(total), kThreads, 0, stream>>>(
       static_cast<const T*>(res), static_cast<const T*>(xp), static_cast<T*>(out),
       (unsigned)total, (unsigned)wp, (unsigned)c, FastDiv((unsigned)(wp * 2 * c)),
-      FastDiv((unsigned)(2 * c)));
+      FastDiv((unsigned)(2 * c)), FastDiv((unsigned)hp), res_batch, xp_batch);
   return (int)cudaGetLastError();
 }
 
@@ -259,12 +278,16 @@ extern "C" int uegan_s2d_convert(const void* x, void* out, int in_dtype, int out
 }
 
 // dtype: 0 = float32, 1 = bfloat16, for res, xp and out alike; c is the
-// original channel count (the packed tensors hold 4c).
+// original channel count (the packed tensors hold 4c); res_batch and
+// xp_batch are the inputs' batch strides in elements (hp * wp * 4c for a
+// contiguous batch; more for a window of rows of each image).
 extern "C" int uegan_residual_tail_d2s(const void* res, const void* xp, void* out, int dtype,
                                        int64_t n, int64_t hp, int64_t wp, int64_t c,
-                                       void* stream) {
+                                       int64_t res_batch, int64_t xp_batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_tail<float>(res, xp, out, n, hp, wp, c, s);
-  if (dtype == 1) return launch_tail<__nv_bfloat16>(res, xp, out, n, hp, wp, c, s);
+  if (dtype == 0) return launch_tail<float>(res, xp, out, n, hp, wp, c, res_batch, xp_batch, s);
+  if (dtype == 1) {
+    return launch_tail<__nv_bfloat16>(res, xp, out, n, hp, wp, c, res_batch, xp_batch, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

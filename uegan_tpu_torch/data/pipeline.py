@@ -9,7 +9,9 @@ Counterpart of uegan_tpu/data/pipeline.py (reference data_loader.py:72-108):
   0 for exp and 1 for raw, and the epoch's order from
   ``np.random.default_rng((seed, epoch))``, as in the JAX package, so both
   packages give the same batches bit for bit;
-- test/val: Resize(test_img_size^2, bilinear) then Normalize(0.5, 0.5).
+- test/val: Resize(test_img_size^2, bilinear) then Normalize(0.5, 0.5);
+  with ``keep_native`` (``--test_keep_aspect``) no resize: the images keep
+  their native size, and batches group images of one (raw, label) size.
 
 With ``emit="uint8"`` the normalize is skipped and uint8 batches are
 yielded, so only 1-byte pixels cross to the device, which normalizes them
@@ -22,7 +24,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List
 
 import numpy as np
 from PIL import Image
@@ -69,6 +71,13 @@ def _test_transform(img: Image.Image, size: int, emit_uint8: bool = False) -> np
     return np.asarray(img) if emit_uint8 else _to_float_norm(img)
 
 
+def _native_transform(img: Image.Image, emit_uint8: bool = False) -> np.ndarray:
+    """The keep_native test transform: no resize.  The pad to a multiple of
+    16 happens on the enhance path (infer/native.py), so the saved outputs
+    keep the native size."""
+    return np.asarray(img) if emit_uint8 else _to_float_norm(img)
+
+
 class _Loader:
     """Batched loader with thread prefetch.
 
@@ -76,15 +85,18 @@ class _Loader:
     test), img_raw the same for domain 2, img_name list[str], the Munch
     contract of the reference fetcher (reference: data_loader.py:124-129).
     A train loader shuffles each epoch and drops the short tail batch; a
-    test loader keeps the order and yields the short tail.
+    test loader keeps the order and yields the short tail.  A
+    ``keep_native`` test loader yields native sizes, each batch of one size.
     """
 
     def __init__(self, dataset: PairedImageDataset, batch_size: int, image_size: int = 512,
                  num_threads: int = 4, prefetch: int = 2, emit: str = "float32",
                  train: bool = False, resize_size: int = 256, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 1990):
+                 drop_last: bool = False, seed: int = 1990, keep_native: bool = False):
         if emit not in ("float32", "uint8"):
             raise ValueError(f"emit must be float32|uint8, got {emit!r}")
+        if keep_native and train:
+            raise ValueError("keep_native applies to test/val loaders only")
         self.dataset = dataset
         self.batch_size = batch_size
         self.image_size = image_size
@@ -96,6 +108,7 @@ class _Loader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.keep_native = keep_native
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -116,17 +129,35 @@ class _Loader:
             r2 = np.random.default_rng((self.seed, epoch, index, 1))
             exp = _train_transform(img1, self.image_size, self.resize_size, r1, u8)
             raw = _train_transform(img2, self.image_size, self.resize_size, r2, u8)
+        elif self.keep_native:
+            exp, raw = _native_transform(img1, u8), _native_transform(img2, u8)
         else:
             exp = _test_transform(img1, self.image_size, u8)
             raw = _test_transform(img2, self.image_size, u8)
         return {"exp": exp, "raw": raw, "name": name}
+
+    def _native_batches(self, order: np.ndarray) -> List[np.ndarray]:
+        """Indices grouped by native (raw, label) size, read from the image
+        headers without decoding, so that every batch stacks; the order
+        within a group is kept."""
+        groups: Dict[tuple, list] = {}
+        for i in order:
+            f1, f2 = self.dataset.samples[int(i)]
+            with Image.open(f2) as im2, Image.open(f1) as im1:
+                groups.setdefault((im2.size, im1.size), []).append(int(i))
+        bs = self.batch_size
+        return [np.asarray(idxs[j:j + bs]) for idxs in groups.values()
+                for j in range(0, len(idxs), bs)]
 
     def __iter__(self) -> Iterator[Dict]:
         epoch = self.epoch
         self.epoch += 1
         order = self._epoch_order(epoch)
         bs = self.batch_size
-        batches = [order[i:i + bs] for i in range(0, len(self) * bs, bs)]
+        if self.keep_native:
+            batches = self._native_batches(order)
+        else:
+            batches = [order[i:i + bs] for i in range(0, len(self) * bs, bs)]
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
@@ -170,6 +201,6 @@ def get_train_loader(root, img_size: int = 512, resize_size: int = 256, batch_si
 
 
 def get_test_loader(root, img_size: int = 512, batch_size: int = 8, num_workers: int = 4,
-                    emit: str = "float32") -> _Loader:
+                    emit: str = "float32", keep_native: bool = False) -> _Loader:
     return _Loader(PairedImageDataset(root), batch_size=batch_size, image_size=img_size,
-                   num_threads=num_workers, emit=emit)
+                   num_threads=num_workers, emit=emit, keep_native=keep_native)

@@ -45,9 +45,6 @@ from uegan_tpu_torch.train.step import make_eval_step
 __all__ = ["space_to_depth", "depth_to_space", "pack_generator_params", "make_packed_eval",
            "make_fast_eval"]
 
-ROADMAP_STRIPS = ("the H-strip executor, bf16 and int8 (forced --strip_rows, or packed "
-                  "height >= 1024 with --strip_rows 0), is ROADMAP queue 1 item 8")
-
 Channels = Union[int, Sequence[int]]
 
 
@@ -549,15 +546,6 @@ def make_packed_eval(g: Generator, packed: Dict) -> Callable[[torch.Tensor], tor
     return fn
 
 
-def check_packed_options(config) -> None:
-    """Raise for the option of the packed route that a later slice ports: a
-    forced strip height (bf16 or int8).  :func:`make_fast_eval` calls it
-    where it takes the packed route; the CLI calls it before it loads
-    anything."""
-    if config.strip_rows > 0:
-        raise NotImplementedError(f"--strip_rows {config.strip_rows}: {ROADMAP_STRIPS}")
-
-
 def make_fast_eval(g: Generator, config,
                    calib_batch: Optional[torch.Tensor] = None) -> Callable[[torch.Tensor],
                                                                            torch.Tensor]:
@@ -571,26 +559,46 @@ def make_fast_eval(g: Generator, config,
     None).  Call it after the weights are loaded: the packed (and quantized)
     kernels are made from G's weights at this call.
 
+    On the packed route an input takes the exact strip executor
+    (infer/strips.py) where its strip height r passes JAX's gate: r is
+    ``--strip_rows`` when > 0, else ``pick_strip_rows`` of the input's
+    packed height (0 below 1024 packed rows), and the strips run when r is
+    even, > 2 * _M_EXIT, divides the packed height and leaves two strips or
+    more; ``--strip_rows -1`` never strips.  The strips chunk their exit by
+    ``--strip_chunks`` and recompute their entry per chunk past 4096 packed
+    rows.  The int8 routes take the int8 strip executor, which runs no
+    kernel E, as in JAX.
+
     Returns ``fn(x)``: (N, H, W, 3) in [-1, 1] -> (N, H, W, 3), in G's dtype
     (bfloat16 on the int8 route).
     """
     if not (config.packed_inference and is_default_generator(g)):
         return make_eval_step(g)
-    check_packed_options(config)
+    from uegan_tpu_torch.infer import strips
+
     g.eval()
     if config.quantized_inference:
-        from uegan_tpu_torch.infer.quantized import make_int8_eval
+        from uegan_tpu_torch.infer.quantized import build_quant_tables, make_int8_eval
 
-        fn = make_int8_eval(g, use_pallas=config.quantized_inference == "int8_pallas",
-                            calib_batch=calib_batch)
+        tabs = build_quant_tables(g, calib_batch)
+        fn = make_int8_eval(g, tabs, use_pallas=config.quantized_inference == "int8_pallas")
+        make_strips = functools.partial(strips.make_int8_strip_eval, g, tabs)
     else:
-        fn = make_packed_eval(g, pack_generator_params(g.state_dict(), g.conv_dim,
-                                                       device=g.enc1.main[1].weight.device))
-    auto_strips = config.strip_rows == 0
+        packed = pack_generator_params(g.state_dict(), g.conv_dim,
+                                       device=g.enc1.main[1].weight.device)
+        fn = make_packed_eval(g, packed)
+        make_strips = functools.partial(strips.make_strip_eval, g, packed)
+    strip_fns: Dict[Tuple[int, bool], Callable] = {}
 
     def packed_step(img_raw: torch.Tensor) -> torch.Tensor:
-        if auto_strips and img_raw.shape[1] // 2 >= 1024:
-            raise NotImplementedError(f"packed height {img_raw.shape[1] // 2}: {ROADMAP_STRIPS}")
+        n, hp = img_raw.shape[0], img_raw.shape[1] // 2
+        if config.strip_rows >= 0:
+            r = config.strip_rows or strips.pick_strip_rows(hp, n)
+            if r and hp % r == 0 and hp >= 2 * r and r % 2 == 0 and r > 2 * strips._M_EXIT:
+                key = (r, hp > 4096)
+                if key not in strip_fns:
+                    strip_fns[key] = make_strips(r, config.strip_chunks, entry_chunked=key[1])
+                return strip_fns[key](img_raw)
         with torch.inference_mode():
             return fn(img_raw)
 

@@ -227,6 +227,11 @@ def build_quant_tables(g: Generator, calib_batch=None,
     - ``b``: original-channel float32 biases per conv
     - ``b9``: the composed dec5 head's 3-channel bias
     - ``se``: ga1's (squeeze, excite, fuse-h) float kernels for the SE branch
+    - ``pk``: :func:`pack_generator_params` of G's weights (OIHW tensors on
+      G's device), the float kernels of the int8 strip executor's bf16 entry
+    - ``entry_int8``: False, so the strip executor (infer/strips.py) keeps
+      its entry chain in bf16 and quantizes the exit chain, JAX's default
+      hybrid; True quantizes the entry too
     """
     cd = g.conv_dim
     dev = g.enc1.main[1].weight.device
@@ -263,7 +268,8 @@ def build_quant_tables(g: Generator, calib_batch=None,
         "fuse_h": sd["ga1.fuse.0.weight"][:, cd:, 0, 0].T,
     }
     return {"q": q, "w": w, "sc": sc, "b": biases,
-            "b9": packed["dec5c_b"].cpu().numpy().astype(np.float32), "se": se}
+            "b9": packed["dec5c_b"].cpu().numpy().astype(np.float32), "se": se,
+            "pk": packed, "entry_int8": False}
 
 
 def make_int8_eval(g: Generator, tables: Optional[Dict] = None, use_pallas: bool = False,

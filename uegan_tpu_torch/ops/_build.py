@@ -52,7 +52,8 @@ _SIGNATURES = {
     "uegan_s2d_convert": [_P, _P, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64, _I64, _I64,
                           ctypes.c_int, ctypes.c_int, _I64, _I64, _P],
     # res, xp, out, dtype, n, hp, wp, c, stream
-    "uegan_residual_tail_d2s": [_P, _P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, _P],
+    "uegan_residual_tail_d2s": [_P, _P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, _I64, _I64,
+                                _P],
     # x, wts, w_scale, bias, mul, out, n, l, w, cin, cout, S, s0, act, requant,
     # inv_scale, vec_mul, stream
     "uegan_packed_conv_int8": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
@@ -173,14 +174,18 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def check_nhwc(x, what: str) -> None:
+def check_nhwc(x, what: str, batch_stride: bool = False) -> None:
     """Raise on any input the kernels do not take: they read a contiguous
-    rank-4 NHWC float32 or bfloat16 tensor."""
+    rank-4 NHWC float32 or bfloat16 tensor, or with ``batch_stride`` one
+    whose images are each contiguous, a batch stride apart (a window of
+    rows of every image of a contiguous batch)."""
     if x.dim() != 4:
         raise ValueError(f"{what}: expected a rank-4 NHWC tensor, got shape {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: dtype {x.dtype} is not float32 or bfloat16")
-    if not x.is_contiguous():
+    _, h, w, c = x.shape
+    rows_ok = x[0].is_contiguous() and (x.shape[0] == 1 or x.stride(0) >= h * w * c)
+    if not (x.is_contiguous() or (batch_stride and rows_ok)):
         raise ValueError(f"{what}: input must be contiguous NHWC (strides {x.stride()})")
     if x.numel() == 0:
         raise ValueError(f"{what}: empty input of shape {tuple(x.shape)}")

@@ -130,11 +130,14 @@ def s2d_convert(x: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16) -> tor
 
 
 def residual_tail_d2s(res: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
-    """res, xp (N, Hp, Wp, 4C) contiguous, one dtype (float32 or bfloat16) ->
-    depth_to_space(clip(res + xp, -1, 1)) (N, 2Hp, 2Wp, C) in that dtype; the
-    add and clip run in f32, and NaN passes through as torch.clamp lets it."""
-    _build.check_nhwc(res, "residual_tail_d2s")
-    _build.check_nhwc(xp, "residual_tail_d2s")
+    """res, xp (N, Hp, Wp, 4C), one dtype (float32 or bfloat16), each image
+    contiguous and the images a batch stride apart (a contiguous batch, or a
+    window of rows of each image of one, as the strip executor's exit reads
+    its slabs) -> depth_to_space(clip(res + xp, -1, 1)) (N, 2Hp, 2Wp, C),
+    contiguous, in that dtype; the add and clip run in f32, and NaN passes
+    through as torch.clamp lets it."""
+    _build.check_nhwc(res, "residual_tail_d2s", batch_stride=True)
+    _build.check_nhwc(xp, "residual_tail_d2s", batch_stride=True)
     if res.shape != xp.shape or res.dtype != xp.dtype or res.device != xp.device:
         raise ValueError(f"residual_tail_d2s: res {tuple(res.shape)} {res.dtype} {res.device} "
                          f"and xp {tuple(xp.shape)} {xp.dtype} {xp.device} differ")
@@ -151,7 +154,8 @@ def residual_tail_d2s(res: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
         out = torch.empty((n, 2 * hp, 2 * wp, c4 // 4), dtype=res.dtype, device=res.device)
         err = lib.uegan_residual_tail_d2s(
             res.data_ptr(), xp.data_ptr(), out.data_ptr(), _build.dtype_code(res),
-            n, hp, wp, c4 // 4, torch.cuda.current_stream().cuda_stream,
+            n, hp, wp, c4 // 4, res.stride(0), xp.stride(0),
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, err, "residual_tail_d2s")
     residual_tail_d2s.launches += 1

@@ -1,6 +1,8 @@
 """Inference engine, counterpart of uegan_tpu/train/tester.py.
 
-Loads the epoch's reference ``.pth``, enhances the whole test set, saves the
+Loads the epoch's reference ``.pth``, enhances the whole test set (at
+native resolution under ``--test_keep_aspect``: each batch reflect-padded to
+a bucketed multiple of 16 and cropped back, infer/native.py), saves the
 outputs and side-by-side compare PNGs, then runs NIMA (``--is_test_nima``,
 on by default as in JAX) and PSNR/SSIM over the saved files.  NIMA is built
 once per Tester, from ``--nima_weights`` (seeded without one) in
@@ -15,6 +17,9 @@ batch, after the checkpoint load, so that the packed kernels are made from
 the loaded weights and not from the random init.  The int8 forward's
 activation scales are calibrated on that first batch as it runs: padded to
 ``val_batch_size`` and normalized to [-1, 1] in f32, as in the JAX Tester.
+Under ``--tile_size > 0`` each image is enhanced in overlapping tiles by the
+canonical eval step and stitched on the host (infer/tiles.py), then
+quantized on the host, as the JAX Tester's tile route does.
 """
 
 from __future__ import annotations
@@ -27,17 +32,25 @@ import numpy as np
 import torch
 
 from uegan_tpu_torch.config import Config
+from uegan_tpu_torch.infer.native import enhance_native
 from uegan_tpu_torch.infer.packed import make_fast_eval
+from uegan_tpu_torch.infer.tiles import enhance_tiled
 from uegan_tpu_torch.metrics.nima import calc_nima, init_nima
 from uegan_tpu_torch.metrics.psnr import calc_psnr
 from uegan_tpu_torch.metrics.ssim import calc_ssim
 from uegan_tpu_torch.models.generator import Generator
 from uegan_tpu_torch.models.initializers import init_weights
 from uegan_tpu_torch.train.state import compute_dtype
+from uegan_tpu_torch.train.step import make_eval_step
 from uegan_tpu_torch.utils.checkpoint import find_checkpoint, generator_state, load_pth
 from uegan_tpu_torch.utils.image_io import (normalize_u8, quantize_u8, save_image,
                                             save_image_grid, to_uint8)
 from uegan_tpu_torch.utils.seed import setup_seed
+
+def _host_norm_u8(u8: np.ndarray) -> np.ndarray:
+    """uint8 -> float32 [-1, 1] on the host (the tile route's input)."""
+    return (np.asarray(u8, np.float32) / 255.0 - 0.5) / 0.5
+
 
 def _pad_batch(raw: np.ndarray, target_b: int) -> np.ndarray:
     b = raw.shape[0]
@@ -97,12 +110,28 @@ class Tester:
             y = quantize_u8(y) if u8_out else y.float()
         return y.cpu().numpy()[:b]
 
+    def _tiled(self, raw_batch: np.ndarray) -> np.ndarray:
+        """Each image in overlapping ``--tile_size`` tiles through the
+        canonical eval step (JAX's ``_eval_fn``), stitched on the host."""
+        step = make_eval_step(self.G)
+        fn = lambda b: step(torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(
+            self.device)).float().cpu().numpy()
+        raw = np.asarray(raw_batch)
+        raw = _host_norm_u8(raw) if raw.dtype == np.uint8 else raw
+        return np.stack([enhance_tiled(fn, img, self.args.tile_size, self.args.tile_overlap)
+                         for img in raw])
+
     def enhance(self, raw_batch: np.ndarray) -> np.ndarray:
         """Enhance a batch (uint8 [0, 255] or float [-1, 1] NHWC) -> float32 [-1, 1]."""
+        if self.args.tile_size > 0:
+            return self._tiled(raw_batch)
         return self._run(raw_batch, u8_out=False)
 
     def enhance_u8(self, raw_batch: np.ndarray) -> np.ndarray:
-        """Enhance a batch (uint8 [0, 255] or float [-1, 1] NHWC) -> PNG-ready uint8."""
+        """Enhance a batch (uint8 [0, 255] or float [-1, 1] NHWC) -> PNG-ready
+        uint8; the tile route quantizes on the host."""
+        if self.args.tile_size > 0:
+            return to_uint8(np.clip((self._tiled(raw_batch) + 1.0) / 2.0, 0.0, 1.0))
         return self._run(raw_batch, u8_out=True)
 
     def test(self) -> Dict:
@@ -120,7 +149,10 @@ class Tester:
         n_done = 0
         for batch in self.loaders["tes"]:
             raw = np.asarray(batch["img_raw"])
-            out_u8 = self.enhance_u8(raw)
+            if args.test_keep_aspect:  # native size: pad to the bucketed grid, crop back
+                out_u8 = enhance_native(self.enhance_u8, raw)
+            else:
+                out_u8 = self.enhance_u8(raw)
             raw_u8 = raw if raw.dtype == np.uint8 else to_uint8((raw + 1.0) / 2.0)
             for i in range(out_u8.shape[0]):
                 name = batch["img_name"][i]
