@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from uegan_tpu_torch/csrc/ (one nvcc
-a source, started together) and runs ten phases, each of which ends the
+a source, started together) and runs eleven phases, each of which ends the
 run with a non-zero exit on failure:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
@@ -141,6 +141,27 @@ run with a non-zero exit on failure:
    1024 x 1536 (>= 35 dB from the host tiling over the f32 plain canonical
    forward; launches A 20, B 16).
 
+11. serve: ``uegan_tpu_torch.serve.app`` in process on 127.0.0.1 with a
+   reference .pth of the phase-4 generator (cd 32), test_img_size 512,
+   bf16, max_batch 16, clients sending 600 x 800 PNGs.  One /api/enhance:
+   bit-equal to make_fast_eval at B=1 on the same resized input, >= 35 dB
+   from the f32 plain canonical forward, launches C 1, D 1, B 3, A 0.  32
+   concurrent requests: fewer batched calls than requests, each call's
+   launches one forward's, every PNG within one gray level of its
+   single-request PNG.  /api/get_scores (NIMA f32, seeded) while enhance
+   requests are in flight: probabilities within 2e-5 of the scorer run at
+   B=1 (how many are equal to the printed 6 decimals is printed).  Timings:
+   each bucket's first device call and its later ones, p50/p99 of 50
+   sequential requests, img/s with 16 and 64 concurrent clients (threads
+   of this process), the server's PNG decode, resize and encode alone, and
+   the device's busy share of sequential requests under torch.profiler.  Then
+   ``--quantized_inference int8_pallas`` (the calibration forward, then E
+   once a batched call; >= 30 dB from the bf16 server's PNG) and
+   ``--keep_aspect`` with a 2000 x 3000 photo (the strips: C 1, B 2, D 1;
+   the PNG at native size, >= 35 dB from the f32 plain canonical forward of
+   the padded input; the peak device memory and seconds with 4 such
+   requests at once).
+
 It then prints the kernels' JSON line and, last, the device JSON line.  It
 exits non-zero without a result where CUDA is unavailable or where the
 uegan_tpu_torch package is not beside this file.
@@ -149,6 +170,7 @@ uegan_tpu_torch package is not beside this file.
 from __future__ import annotations
 
 import contextlib
+import http.client
 import io
 import json
 import math
@@ -157,7 +179,9 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 1990
@@ -194,6 +218,15 @@ TILE, TILE_OVERLAP = 512, 32
 # chunk of the exit at 4096 px (unchunked) and 8192 px
 STRIP_R = 128
 HR_CHUNKS = {4096: 16, 8192: 8}
+# phase 11, the HTTP service: the clients' photos for the square route
+# (resized to IMG by the server), the concurrent and sequential request
+# counts, the concurrent clients timed, and the native-size photo
+SERVE_PHOTO = (600, 800)
+SERVE_CONCURRENT = 32
+SERVE_SEQUENTIAL = 50
+SERVE_CLIENTS = (16, 64)
+SERVE_NATIVE = (2000, 3000)
+SERVE_NATIVE_AT_ONCE = 4
 KERNELS = ("gam_stats", "upsample2x", "s2d_convert", "residual_tail_d2s", "packed_conv_int8",
            "packed_conv", "gam_stats_bwd", "upsample2x_bwd")
 # the train slice: 256 px crops of 512, batch 10, so G runs on 20 images
@@ -2378,6 +2411,316 @@ def phase_highres(dev, card: str, tmp: str) -> dict:
     return launches
 
 
+def photo(h: int, w: int, rng):
+    """One (h, w, 3) uint8 photo of smooth gradients with noise, as
+    write_pairs makes them."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    base = np.stack([yy * rng.uniform(0.3, 1), xx * rng.uniform(0.3, 1),
+                     (yy + xx) / 2 * rng.uniform(0.3, 1)], -1)
+    return np.clip(base * 255 + rng.normal(0, 12, base.shape), 0, 255).astype(np.uint8)
+
+
+def png_bytes(img) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "PNG")
+    return buf.getvalue()
+
+
+def png_array(data: bytes):
+    import numpy as np
+    from PIL import Image
+
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def start_server(**kw):
+    """uegan_tpu_torch.serve.app's server on 127.0.0.1 (a free port),
+    serving from a thread of this process."""
+    from uegan_tpu_torch.serve.app import create_server
+
+    srv = create_server(host="127.0.0.1", port=0, **kw)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def stop_server(srv) -> None:
+    srv.shutdown()
+    srv.server_close()
+
+
+def post(srv, route: str, body: bytes) -> bytes:
+    """POST ``body``; the response body, or a failure naming the status."""
+    conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1], timeout=600)
+    try:
+        conn.request("POST", route, body=body)
+        r = conn.getresponse()
+        data = r.read()
+    finally:
+        conn.close()
+    if r.status != 200:
+        raise AssertionError(f"{route}: HTTP {r.status}: {data[:300]!r}")
+    return data
+
+
+def concurrently(fn, items: list) -> list:
+    """fn(item) on one thread per item, all released at once; the results in
+    order (the first failure raised)."""
+    gate = threading.Barrier(len(items))
+
+    def call(item):
+        gate.wait()
+        return fn(item)
+    with ThreadPoolExecutor(max_workers=len(items)) as pool:
+        futures = [pool.submit(call, item) for item in items]
+        return [f.result() for f in futures]
+
+
+def psnr_u8(a, b) -> float:
+    import numpy as np
+
+    mse = float(((a.astype(np.float64) - b.astype(np.float64)) ** 2).mean())
+    return 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+def phase_serve(dev, card: str, tmp: str) -> dict:
+    """Phase 11: the HTTP service (uegan_tpu_torch.serve.app) on the card,
+    in process, with a reference .pth of the phase-4 generator; the
+    launches of the paths it drives (serve, serve_int8, serve_native)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from uegan_tpu_torch.config import Config
+    from uegan_tpu_torch.infer import native
+    from uegan_tpu_torch.infer.packed import make_fast_eval
+    from uegan_tpu_torch.metrics.nima import init_nima, prepare_image_np
+    from uegan_tpu_torch.utils.image_io import normalize_u8, quantize_u8
+
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    rng = np.random.default_rng(SEED + 11)
+    zero = dict.fromkeys(KERNELS, 0)
+    fwd = {**zero, "s2d_convert": 1, "residual_tail_d2s": 1, "upsample2x": 3}
+    _, sd = seeded_generator(torch.float32, "cpu")
+    pth = os.path.join(tmp, "UEGAN-FiveK_rahinge_92.pth")
+    torch.save({"G_net": sd, "D_net": {}, "epoch": 92.0, "g_optimizer": {}, "d_optimizer": {},
+                "lr_scheduler_g": {}, "lr_scheduler_d": {}}, pth)
+    photos = [photo(*SERVE_PHOTO, rng) for _ in range(SERVE_CONCURRENT)]
+    bodies = [png_bytes(p) for p in photos]
+    enhance = lambda srv: (lambda body: png_array(post(srv, "/api/enhance", body)))
+    launches = {}
+    g32, _ = seeded_generator(torch.float32, dev)
+
+    def plain_f32(u8):
+        """The f32 canonical forward with the plain versions (TF32 off: the
+        server turned it off for the process) of a uint8 NHWC batch."""
+        with torch.inference_mode(), plain_versions():
+            return quantize_u8(g32(normalize_u8(torch.from_numpy(np.array(u8)).to(dev)))).cpu().numpy()
+
+    # -- bf16, the default: one request, then 32 at once
+    srv = start_server(generator_ckpt=pth, test_img_size=IMG, max_batch=16, device=dev)
+    models = srv.models
+    device_calls = []  # (rows, seconds) of each batched device call
+    run_u8 = models._run_u8
+
+    def timed(arrs):
+        t0 = time.perf_counter()
+        out = run_u8(arrs)
+        device_calls.append((arrs.shape[0], time.perf_counter() - t0))
+        return out
+    models._run_u8 = timed
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        first = enhance(srv)(bodies[0])
+        first_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        one = counts()
+        check_counts("one /api/enhance (bf16, B=1)", one, fwd)
+        x = np.asarray(Image.fromarray(photos[0]).resize((IMG, IMG), Image.BILINEAR))[None]
+        g16, _ = seeded_generator(torch.bfloat16, dev)
+        with torch.inference_mode():
+            want = quantize_u8(make_fast_eval(g16, Config())(
+                normalize_u8(torch.from_numpy(x.copy()).to(dev)))).cpu().numpy()[0]
+        p1 = psnr_u8(first, plain_f32(x)[0])
+        same = bool(np.array_equal(first, want))
+        log("11 serve", f"one /api/enhance {SERVE_PHOTO[0]}x{SERVE_PHOTO[1]} PNG -> {IMG}px bf16: "
+                        f"bit-equal to make_fast_eval at B=1 on the same resized input: {same} "
+                        f"(max |du8| {int(np.abs(first.astype(int) - want).max())}); "
+                        f"{p1:.2f} dB from the f32 plain canonical forward (limit 35); launches "
+                        f"{one}; {first_s:.3f} s with the server's build")
+        if not same or p1 < 35.0:
+            raise AssertionError(f"the served PNG: bit-equal {same}, {p1:.2f} dB")
+
+        singles = [first] + [enhance(srv)(b) for b in bodies[1:]]
+        calls0 = models._enhance_batcher.calls
+        reset_counts()
+        outs = concurrently(enhance(srv), bodies)
+        torch.cuda.synchronize()
+        conc = counts()
+        calls = models._enhance_batcher.calls - calls0
+        check_counts(f"{SERVE_CONCURRENT} concurrent /api/enhance ({calls} batched calls)", conc,
+                     {k: v * calls for k, v in fwd.items()})
+        worst = max(int(np.abs(o.astype(np.int16) - s).max()) for o, s in zip(outs, singles))
+        log("11 serve", f"{SERVE_CONCURRENT} concurrent /api/enhance, max_batch 16: {calls} "
+                        f"batched calls (limit < {SERVE_CONCURRENT}), rows "
+                        f"{[n for n, _ in device_calls[-calls:]]}; largest |du8| against the "
+                        f"single-request PNGs {worst} (limit 1); launches {conc}")
+        if calls >= SERVE_CONCURRENT or worst > 1:
+            raise AssertionError(f"concurrent requests: {calls} calls, |du8| {worst}")
+        launches["serve"] = conc
+
+        # -- NIMA (f32, seeded) under enhance load, against the scorer at B=1
+        scorer = init_nima("", compute_dtype="float32", device=dev)
+        stop, errors = threading.Event(), []
+
+        def load(i):
+            try:
+                while not stop.is_set():
+                    post(srv, "/api/enhance", bodies[i % len(bodies)])
+                    i += 1
+            except Exception as e:  # surfaced after the join
+                errors.append(e)
+        loaders = [threading.Thread(target=load, args=(i,)) for i in range(4)]
+        for t in loaders:
+            t.start()
+        try:
+            got = [json.loads(post(srv, "/api/get_scores", b))["scores"] for b in bodies[:8]]
+        finally:
+            stop.set()
+            for t in loaders:
+                t.join(600)
+        if errors:
+            raise errors[0]
+        with torch.inference_mode():
+            want = [scorer(torch.from_numpy(prepare_image_np(Image.fromarray(p))[None]).to(dev))
+                    .cpu().numpy()[0] for p in photos[:8]]
+        dn = max(float(np.abs(np.asarray(a) - b).max()) for a, b in zip(got, want))
+        exact = sum(a == [round(float(v), 6) for v in b] for a, b in zip(got, want))
+        log("11 serve", f"/api/get_scores NIMA f32 with 4 clients of /api/enhance in flight: 8 "
+                        f"images, probabilities max |d| {dn:.3e} from the scorer at B=1 (limit "
+                        f"2e-5); {exact} of 8 equal to its 6 printed decimals")
+        if dn > 2e-5:
+            raise AssertionError(f"served NIMA scores {dn} from the scorer")
+
+        # -- timings
+        firsts, later = {}, {}
+        for rows, sec in device_calls:
+            (later.setdefault(rows, []) if rows in firsts else firsts.setdefault(rows, [])).append(
+                sec)
+        log("11 serve", "device call (normalize, forward, quantize, copies) by bucket, first / "
+                        "median of later ms: " + ", ".join(
+                            f"B={b} {firsts[b][0] * 1e3:.2f} / "
+                            f"{np.median(later[b]) * 1e3 if b in later else float('nan'):.2f}"
+                            for b in sorted(firsts)) + f" [{card}]")
+        lat = []
+        for i in range(SERVE_SEQUENTIAL):
+            t0 = time.perf_counter()
+            post(srv, "/api/enhance", bodies[i % len(bodies)])
+            lat.append((time.perf_counter() - t0) * 1e3)
+        log("11 serve", f"{SERVE_SEQUENTIAL} sequential /api/enhance ({SERVE_PHOTO[0]}x"
+                        f"{SERVE_PHOTO[1]} PNG in, {IMG}px PNG out): p50 "
+                        f"{np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f} ms, "
+                        f"mean {np.mean(lat):.2f} ms [{card}]")
+        for clients in SERVE_CLIENTS:
+            calls0, n0 = models._enhance_batcher.calls, len(device_calls)
+            t0 = time.perf_counter()
+            concurrently(lambda i: [post(srv, "/api/enhance", bodies[(i + k) % len(bodies)])
+                                    for k in range(4)], list(range(clients)))
+            secs = time.perf_counter() - t0
+            rows = [n for n, _ in device_calls[n0:]]
+            log("11 serve", f"{clients} concurrent clients x 4 /api/enhance: "
+                            f"{4 * clients / secs:.1f} img/s ({secs:.3f} s), "
+                            f"{models._enhance_batcher.calls - calls0} batched calls, mean "
+                            f"{np.mean(rows):.2f} rows a call (padded) [{card}]")
+        dec, enc = [], []
+        for b in bodies[:10]:
+            t0 = time.perf_counter()
+            with Image.open(io.BytesIO(b)) as im:
+                u8 = np.asarray(im.convert("RGB").resize((IMG, IMG), Image.BILINEAR))
+            t1 = time.perf_counter()
+            png_bytes(u8)
+            dec.append((t1 - t0) * 1e3)
+            enc.append((time.perf_counter() - t1) * 1e3)
+        log("11 serve", f"the server's host work a request, alone (mean of 10): PNG decode and "
+                        f"PIL resize {np.mean(dec):.2f} ms, PNG encode of the {IMG}px result "
+                        f"{np.mean(enc):.2f} ms [{card}]")
+        seq = iter(range(10))
+        r = profile(lambda: post(srv, "/api/enhance", bodies[next(seq)]), iters=10, warmup=0)
+        log("11 serve", f"10 sequential /api/enhance under torch.profiler: {r['wall_ms']:.2f} ms "
+                        f"a request, device busy {r['busy_ms']:.3f} ms a request, device share "
+                        f"{r['busy_ms'] / r['wall_ms']:.3f} (the rest: HTTP, PNG decode and "
+                        f"encode, PIL resize, the batcher's window) [{card}]")
+    finally:
+        models._run_u8 = run_u8
+        stop_server(srv)
+
+    # -- int8_pallas: calibration on JAX's seeded batch at the first request
+    srv = start_server(generator_ckpt=pth, test_img_size=IMG, quantized_inference="int8_pallas",
+                       device=dev)
+    try:
+        reset_counts()
+        out8 = enhance(srv)(bodies[0])
+        concurrently(enhance(srv), bodies[1:5])
+        torch.cuda.synchronize()
+        run8 = counts()
+        calls8 = srv.models._enhance_batcher.calls
+    finally:
+        stop_server(srv)
+    calib = {**zero, "gam_stats": 4, "upsample2x": 3, "s2d_convert": 1}
+    fwd8 = {**fwd, "gam_stats": 4, "packed_conv_int8": 1}
+    check_counts(f"/api/enhance int8_pallas (calibration, {calls8} batched calls)", run8,
+                 {k: calib[k] + calls8 * fwd8[k] for k in KERNELS})
+    p8 = psnr_u8(out8, first)
+    log("11 serve", f"--quantized_inference int8_pallas: 5 requests, {calls8} batched calls; "
+                    f"{p8:.2f} dB from the bf16 server's PNG (limit 30); launches {run8}")
+    if p8 < 30.0:
+        raise AssertionError(f"int8_pallas served PNG {p8:.2f} dB from bf16")
+    launches["serve_int8"] = run8
+
+    # -- --keep_aspect: a DSLR-sized photo through the strips, unbatched
+    big = photo(*SERVE_NATIVE, rng)
+    big_png = png_bytes(big)
+    srv = start_server(generator_ckpt=pth, keep_aspect=True, device=dev)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out_n = enhance(srv)(big_png)
+        first_n = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        run_n = counts()
+        check_counts(f"one /api/enhance --keep_aspect {SERVE_NATIVE[0]}x{SERVE_NATIVE[1]} (the "
+                     f"strips)", run_n,
+                     {**zero, "s2d_convert": 1, "upsample2x": 2, "residual_tail_d2s": 1})
+        t0 = time.perf_counter()
+        enhance(srv)(big_png)
+        again_n = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs, peak = peak_gib(lambda: concurrently(enhance(srv), [big_png] * SERVE_NATIVE_AT_ONCE))
+        at_once = time.perf_counter() - t0
+    finally:
+        stop_server(srv)
+    padded, hw = native.pad_to_grid(big[None])
+    ref = native.crop_back(plain_f32(padded), hw)[0]
+    pn = psnr_u8(out_n, ref)
+    same = all(np.array_equal(o, out_n) for o in outs)
+    log("11 serve", f"--keep_aspect {SERVE_NATIVE[0]}x{SERVE_NATIVE[1]} PNG: {out_n.shape[0]}x"
+                    f"{out_n.shape[1]} back, {pn:.2f} dB from the f32 plain canonical forward "
+                    f"of the padded input (limit 35); launches {run_n}; first request "
+                    f"{first_n:.3f} s, the next {again_n:.3f} s; {SERVE_NATIVE_AT_ONCE} at once "
+                    f"{at_once:.3f} s, peak {peak:.2f} GiB above what was held before them, outputs "
+                    f"equal to the single request's: {same} [{card}]")
+    if out_n.shape != SERVE_NATIVE + (3,) or pn < 35.0:
+        raise AssertionError(f"--keep_aspect: shape {out_n.shape}, {pn:.2f} dB")
+    launches["serve_native"] = run_n
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2429,6 +2772,8 @@ def main() -> int:
         phase_nima(dev, card, tmp)
     with tempfile.TemporaryDirectory(prefix="uegan_smoke_highres_") as tmp:
         launches.update(phase_highres(dev, card, tmp))
+    with tempfile.TemporaryDirectory(prefix="uegan_smoke_serve_") as tmp:
+        launches.update(phase_serve(dev, card, tmp))
 
     src = {"gam_stats": ("uegan_tpu_torch/csrc/gam_stats.cu",
                          "uegan_tpu/ops/pallas/gam_stats.py:66"),

@@ -233,6 +233,6 @@ def test_train_cli_then_jax_reads_the_pth(ava_fixture, tmp_path, monkeypatch, ca
     assert port[:2] == jx[:2] == ["val", "EMD:"] and port[3] == jx[3] == "mean:"
     for i in (2, 4, 6):
         np.testing.assert_allclose(float(port[i]), float(jx[i]), atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="orbax_to_pth.py --nima"):
         cli.main(["validate-model", "--path_to_model_weight", str(tmp_path / "out"),
                   "--path_to_save_csv", splits])

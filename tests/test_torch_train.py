@@ -398,7 +398,7 @@ def test_refuse_grad_and_checkpoint_ambiguity(tmp_path):
     torch.save({"G_net": {}}, str(stem) + ".pth")
     assert find_checkpoint(str(tmp_path), cfg, 3) == str(stem) + ".pth"
     stem.mkdir()
-    with pytest.raises(RuntimeError, match="ROADMAP queue 1 item 4"):
+    with pytest.raises(RuntimeError, match="orbax_to_pth.py --ckpt"):
         find_checkpoint(str(tmp_path), cfg, 3)
 
 

@@ -6,6 +6,9 @@ The JAX state is built from the bridged weights (no ``create_train_state``:
 its jitted init of G, D and VGG costs more than this whole test), and its
 step is jitted once.  cd 8, dd 8, 32 px, batch 2, float32, pool size 4, so
 both steps only fill the pool and no random draw enters the comparison.
+The JAX steps run once for the file: a second case saves JAX's state after
+step 1 to orbax, exports it with ``orbax_to_pth.py --weights live`` and
+resumes the port from that ``.pth`` into step 2.
 """
 
 import os
@@ -23,11 +26,13 @@ from uegan_tpu.train.image_pool import pool_init
 from uegan_tpu.train.schedules import make_optimizer as jax_make_optimizer
 from uegan_tpu.train.state import ModelBundle, TrainState, build_models
 from uegan_tpu.train.step import make_train_step as jax_make_train_step
+from uegan_tpu.utils.checkpoint import CheckpointManager
 from uegan_tpu_torch.config import Config
 from uegan_tpu_torch.convert.from_flax import discriminator_state_dict, generator_state_dict
 from uegan_tpu_torch.models.initializers import fan_in_normal_state
-from uegan_tpu_torch.train.state import create_train_state
+from uegan_tpu_torch.train.state import create_train_state, load_checkpoint
 from uegan_tpu_torch.train.step import make_train_step
+from uegan_tpu_torch.utils.checkpoint import load_pth
 
 from tests.test_torch_train import jax_vgg_params
 
@@ -92,36 +97,88 @@ def _check_params(name: str, model: torch.nn.Module, want: dict, lr: float, wd: 
     assert n_off <= 1e-4 * n_all, (name, n_off, n_all)
 
 
-def test_train_step_matches_jax():
-    """Steps 1 and 2: D/Total, G/Total and the three G terms to rel 1e-4,
-    and G's and D's parameters (and D's u, v) after step 1 (_check_params)."""
-    cfg = Config(**FLAGS)
+@pytest.fixture(scope="module")
+def run():
+    """The fixture's batches, the numpy-seeded weights, and JAX's two steps
+    from them: the state after each step (on the host) and each step's
+    metrics."""
     jl = jax_train_loader(FIXTURE, img_size=48, resize_size=32, batch_size=2, num_workers=1,
                           process_id=0, process_count=1)
     batches = list(jl)
-    state = create_train_state(cfg, "cpu", (32, 32), len(batches))
-    sds = {"g": fan_in_normal_state(state.g, seed=1), "d": fan_in_normal_state(state.d, seed=2),
-           "vgg": fan_in_normal_state(state.vgg, seed=3)}
+    probe = create_train_state(Config(**FLAGS), "cpu", (32, 32), len(batches))
+    sds = {"g": fan_in_normal_state(probe.g, seed=1), "d": fan_in_normal_state(probe.d, seed=2),
+           "vgg": fan_in_normal_state(probe.vgg, seed=3)}
+    jstate, jstep = _jax_state(sds, len(batches))
+    states, metrics = [], []
+    for b in batches:
+        jstate, jm, _ = jstep(jstate, jnp.asarray(b["img_raw"]), jnp.asarray(b["img_exp"]))
+        states.append(jax.device_get(jstate))
+        metrics.append({k: float(v) for k, v in jm.items()})
+    return batches, sds, states, metrics
+
+
+def _port_state(sds: dict, steps_per_epoch: int):
+    cfg = Config(**FLAGS)
+    state = create_train_state(cfg, "cpu", (32, 32), steps_per_epoch)
     for key, m in (("g", state.g), ("d", state.d), ("vgg", state.vgg)):
         m.load_state_dict({k: torch.from_numpy(v) for k, v in sds[key].items()})
-    jstate, jstep = _jax_state(sds, len(batches))
+    return cfg, state
+
+
+def _check_metrics(pm: dict, jm: dict, step: int) -> None:
+    assert sorted(pm) == sorted(jm)
+    for k, v in jm.items():
+        np.testing.assert_allclose(float(pm[k]), v, rtol=1e-4, err_msg=f"{k} step {step}")
+
+
+def _want(jstate):
+    return (generator_state_dict({"params": jstate.g_params}),
+            discriminator_state_dict({"params": jstate.d_params, **jstate.d_extra}))
+
+
+def test_train_step_matches_jax(run):
+    """Steps 1 and 2: D/Total, G/Total and the three G terms to rel 1e-4,
+    and G's and D's parameters (and D's u, v) after step 1 (_check_params)."""
+    batches, sds, jstates, jmetrics = run
+    cfg, state = _port_state(sds, len(batches))
     step = make_train_step(state)
     for i, b in enumerate(batches):
         p0 = {k: v.detach().clone() for k, v in state.g.named_parameters()}
-        jstate, jm, _ = jstep(jstate, jnp.asarray(b["img_raw"]), jnp.asarray(b["img_exp"]))
         pm, images = step(torch.from_numpy(b["img_raw"]), torch.from_numpy(b["img_exp"]))
-        assert sorted(pm) == sorted(jm)
-        for k, v in jm.items():
-            np.testing.assert_allclose(float(pm[k]), float(v), rtol=1e-4,
-                                       err_msg=f"{k} step {i + 1}")
+        _check_metrics(pm, jmetrics[i], i + 1)
         assert images["fake_exp"].shape == (2, 32, 32, 3)
         if i == 0:
-            want_g = generator_state_dict({"params": jax.device_get(jstate.g_params)})
-            want_d = discriminator_state_dict({"params": jax.device_get(jstate.d_params),
-                                               **jax.device_get(jstate.d_extra)})
+            want_g, want_d = _want(jstates[0])
             _check_params("G", state.g, want_g, cfg.g_lr, cfg.weight_decay)
             _check_params("D", state.d, want_d, cfg.d_lr, cfg.weight_decay)
             moved = max(float((p.detach() - p0[k]).abs().max())
                         for k, p in state.g.named_parameters())
             assert moved > 0.5 * cfg.g_lr  # the step moved G
     assert state.step == 2 and state.pool.count == 4
+
+
+def test_resume_from_exported_jax_checkpoint_takes_jax_step_2(run, tmp_path):
+    """JAX's state after step 1, saved by its CheckpointManager and exported
+    with ``--weights live``, resumes the port (weights, D's u/v, both Adam
+    moments and counts; the pool starts empty, as on any .pth resume, and at
+    step 2 of pool 4 and batch 2 the pool only fills); step 2 then matches
+    JAX's step 2: losses to rel 1e-4 and the parameters after it by
+    _check_params, which Adam's second step reaches only through the
+    exported moments and step count."""
+    import orbax_to_pth
+
+    batches, sds, jstates, jmetrics = run
+    jcfg = JaxConfig(**FLAGS, checkpoint_async=False)
+    ckpt = CheckpointManager(str(tmp_path / "jax"), jcfg).save(jstates[0], 1 / len(batches))
+    pth = orbax_to_pth.export_checkpoint(ckpt, str(tmp_path / "port"), weights="live")
+    cfg, state = _port_state(sds, len(batches))
+    load_checkpoint(state, load_pth(pth))
+    state.step = 1
+    for opt in (state.g_opt, state.d_opt):
+        assert all(float(s["step"]) == 1.0 for s in opt.state.values())
+    b = batches[1]
+    pm, _ = make_train_step(state)(torch.from_numpy(b["img_raw"]), torch.from_numpy(b["img_exp"]))
+    _check_metrics(pm, jmetrics[1], 2)
+    want_g, want_d = _want(jstates[1])
+    _check_params("G", state.g, want_g, cfg.g_lr, cfg.weight_decay)
+    _check_params("D", state.d, want_d, cfg.d_lr, cfg.weight_decay)

@@ -9,13 +9,15 @@ becomes ``weight_orig``, its ``spectral`` ``u``/``v`` ``weight_u``/
 torchvision's ``features.{idx}.weight``) and ``import_nima`` (the
 MobileNetV2 trunk's ``base/{stem,block{i}/{pw,dw,pw_linear},head_conv}``
 become the reference's ``base_model.0.{idx}``, the ``fc`` kernel is
-transposed into ``head.2.weight``).  Values may be numpy arrays or
-anything ``np.asarray`` takes; nothing here imports JAX.
+transposed into ``head.2.weight``).  ``adam_state_dict`` carries optax's
+Adam moments into ``torch.optim.Adam``'s state dict through the same name
+maps.  Values may be numpy arrays or anything ``np.asarray`` takes;
+nothing here imports JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -155,3 +157,33 @@ def nima_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     sd["head.2.weight"] = _t(np.ascontiguousarray(np.asarray(params["fc"]["kernel"]).T))
     sd["head.2.bias"] = _t(params["fc"]["bias"])
     return sd
+
+
+def adam_state_dict(count, mu: Dict[str, Any], nu: Dict[str, Any],
+                    to_state_dict: Callable[[Dict[str, Any]], Dict[str, torch.Tensor]],
+                    names: Sequence[str], lr: float, betas: Tuple[float, float],
+                    weight_decay: float, eps: float = 1e-8) -> Dict[str, Any]:
+    """optax's ``ScaleByAdamState(count, mu, nu)`` (index 1 of the JAX
+    chain ``add_decayed_weights``, ``scale_by_adam``, ``scale_by_learning_rate``,
+    uegan_tpu/train/schedules.py) -> ``torch.optim.Adam.state_dict()`` of an
+    optimizer over parameters ``names`` (the port's ``named_parameters()``
+    order, which is the order of Adam's integer state keys).
+
+    ``to_state_dict`` maps a parameter-shaped tree to torch names (such as
+    ``generator_state_dict``, or ``discriminator_state_dict`` with the
+    spectral tree beside it, so a kernel becomes ``weight_orig``); entries
+    that are not parameters (SN ``u``/``v``) are dropped.  ``step`` is
+    ``count`` as the float tensor torch keeps; both packages' bias
+    corrections then take the same power.  The coupled weight decay enters
+    the gradient before the moments in both, so ``mu``/``nu`` are torch's
+    ``exp_avg``/``exp_avg_sq`` as they are."""
+    m, v = to_state_dict(mu), to_state_dict(nu)
+    missing = [n for n in names if n not in m or n not in v]
+    if missing:
+        raise KeyError(f"the Adam moments lack {missing}")
+    step = torch.tensor(float(np.asarray(count)))
+    state = {i: {"step": step.clone(), "exp_avg": m[n], "exp_avg_sq": v[n]}
+             for i, n in enumerate(names)}
+    group = {"lr": lr, "betas": tuple(betas), "eps": eps, "weight_decay": weight_decay,
+             "amsgrad": False, "maximize": False, "params": list(range(len(names)))}
+    return {"state": state, "param_groups": [group]}

@@ -10,17 +10,14 @@ Usage: python -m uegan_tpu_torch.nima_train.cli <command> [options]
 The device comes from ``UEGAN_TORCH_DEVICE`` (default ``cuda``), as for
 ``python -m uegan_tpu_torch``; JAX's ``--platform`` has no counterpart.
 Weights are the reference's ``.pth``; an orbax directory (what the JAX
-trainer writes) is refused.
+trainer writes) is refused with the ``orbax_to_pth.py --nima`` command that
+exports it.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-
-ROADMAP_ORBAX_NIMA = ("orbax NIMA checkpoints are not read by the port; export the weights to "
-                      "the reference .pth first (ROADMAP queue 1 item 4)")
-
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="nima")
@@ -85,8 +82,13 @@ def main(argv=None) -> None:
         from uegan_tpu_torch.nima_train.dataset import AVADataset
         from uegan_tpu_torch.nima_train.train import validate_nima
 
+        if os.path.isdir(args.path_to_model_weight):
+            from uegan_tpu_torch.utils.checkpoint import orbax_refusal
+
+            raise NotImplementedError(orbax_refusal(args.path_to_model_weight, "OUT_DIR",
+                                                    "--nima"))
         if not args.path_to_model_weight.endswith(".pth"):
-            raise NotImplementedError(f"{args.path_to_model_weight}: {ROADMAP_ORBAX_NIMA}")
+            raise ValueError(f"{args.path_to_model_weight}: not a reference .pth")
         if not os.path.exists(args.path_to_model_weight):
             raise FileNotFoundError(args.path_to_model_weight)
         model = init_nima(args.path_to_model_weight, device=resolve_device())

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -70,6 +71,7 @@ _BODY_ERRORS = {10001: "cuTensorMapEncodeTiled is not available",
                 10002: "cuTensorMapEncodeTiled refused a tensor map"}
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()  # one build and load, whichever thread launches first
 ptxas_report: dict = {}
 
 
@@ -151,19 +153,23 @@ def build() -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The kernels' library, built on first use; raises if it cannot be built."""
+    """The kernels' library, built on first use; raises if it cannot be built.
+    Threads that launch at once (a server's request threads) wait for one build."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.uegan_tc_conv_smem_bytes.argtypes = []
-        lib.uegan_tc_conv_smem_bytes.restype = ctypes.c_int
-        lib.uegan_error_string.argtypes = [ctypes.c_int]
-        lib.uegan_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.uegan_tc_conv_smem_bytes.argtypes = []
+            lib.uegan_tc_conv_smem_bytes.restype = ctypes.c_int
+            lib.uegan_error_string.argtypes = [ctypes.c_int]
+            lib.uegan_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 

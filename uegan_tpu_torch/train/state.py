@@ -86,5 +86,21 @@ def create_train_state(config: Config, device, image_hw: Tuple[int, int], steps_
     return state
 
 
+def load_checkpoint(state: TrainState, ckpt: Dict) -> None:
+    """Resume ``state`` from a reference checkpoint dict (``utils/checkpoint.py:
+    load_pth``): G's and D's weights (D's spectral-norm u/v with them) and,
+    where the dict has them, both optimizers' moments and step counts.  An
+    EMA copy starts again from the loaded weights: the dict keeps none."""
+    state.g.load_state_dict({k: v for k, v in ckpt["G_net"].items()
+                             if not k.endswith("num_batches_tracked")})
+    state.d.load_state_dict({k: v for k, v in ckpt["D_net"].items()
+                             if not k.endswith("num_batches_tracked")})
+    for opt, key in ((state.g_opt, "g_optimizer"), (state.d_opt, "d_optimizer")):
+        if ckpt.get(key):
+            opt.load_state_dict(ckpt[key])
+    if state.g_ema is not None:
+        state.g_ema = {k: v.detach().clone() for k, v in state.g.named_parameters()}
+
+
 def count_params(model: torch.nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())

@@ -34,7 +34,7 @@ from uegan_tpu_torch.metrics.psnr import calc_psnr, psnr_batch
 from uegan_tpu_torch.metrics.ssim import calc_ssim, ssim_batch
 from uegan_tpu_torch.models.vgg import load_vgg_weights
 from uegan_tpu_torch.train.schedules import make_lr_schedule
-from uegan_tpu_torch.train.state import count_params, create_train_state
+from uegan_tpu_torch.train.state import count_params, create_train_state, load_checkpoint
 from uegan_tpu_torch.train.step import make_train_step
 from uegan_tpu_torch.utils.checkpoint import ckpt_name, find_checkpoint, load_pth, save_pth
 from uegan_tpu_torch.utils.image_io import normalize_u8, quantize_u8, save_image, save_image_grid
@@ -313,15 +313,6 @@ class Trainer:
         return max(epochs) if epochs else None
 
     def load_pretrained_model(self, resume_epoch) -> None:
-        ckpt = load_pth(find_checkpoint(self.model_save_path, self.args, resume_epoch))
-        s = self.state
-        s.g.load_state_dict({k: v for k, v in ckpt["G_net"].items()
-                             if not k.endswith("num_batches_tracked")})
-        s.d.load_state_dict({k: v for k, v in ckpt["D_net"].items()
-                             if not k.endswith("num_batches_tracked")})
-        for opt, key in ((s.g_opt, "g_optimizer"), (s.d_opt, "d_optimizer")):
-            if ckpt.get(key):
-                opt.load_state_dict(ckpt[key])
-        if s.g_ema is not None:  # EMA over a checkpoint without one: start from its weights
-            s.g_ema = {k: v.detach().clone() for k, v in s.g.named_parameters()}
+        load_checkpoint(self.state, load_pth(find_checkpoint(self.model_save_path, self.args,
+                                                             resume_epoch)))
         print(f"=========== loaded trained models (epochs: {resume_epoch})! ===========")

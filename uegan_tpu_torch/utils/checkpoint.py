@@ -5,8 +5,10 @@ g_optimizer, d_optimizer, lr_scheduler_g, lr_scheduler_d} named
 ``{version}_{adv_loss_type}_{epoch}.pth`` (reference trainer.py:186-208).
 The port's trainer writes that dict (``save_pth``), which the port's Tester
 and the JAX Tester both read.  The JAX package writes orbax directories of
-the same stem instead; the port does not read those yet, and where both
-forms of one epoch exist it refuses to pick one (``find_checkpoint``).
+the same stem instead.  The port does not read those: ``orbax_to_pth.py``
+at the repository root exports one to the reference ``.pth`` (where flax is
+installed), and every refusal here names that command.  Where both forms of
+one epoch exist the port refuses to pick one (``find_checkpoint``).
 """
 
 from __future__ import annotations
@@ -18,8 +20,19 @@ import torch
 
 from uegan_tpu_torch.config import Config
 
-ROADMAP_ORBAX = ("orbax checkpoint directories are not read by the port; export the "
-                 "weights to the reference .pth first (ROADMAP queue 1 item 4)")
+EXPORT_SCRIPT = "orbax_to_pth.py"
+
+
+def export_command(orbax_dir: str, out: str, flag: str = "--ckpt") -> str:
+    """The command that exports ``orbax_dir`` to a reference ``.pth`` under
+    ``out`` (``--nima`` for a NIMA checkpoint)."""
+    return f"python {EXPORT_SCRIPT} {flag} {orbax_dir} --out {out}"
+
+
+def orbax_refusal(orbax_dir: str, out: str, flag: str = "--ckpt") -> str:
+    return (f"{orbax_dir} is an orbax checkpoint directory, which the port does not read; "
+            f"export it to the reference .pth with `{export_command(orbax_dir, out, flag)}` "
+            "(where flax is installed)")
 KEYS = ("G_net", "D_net", "epoch", "g_optimizer", "d_optimizer", "lr_scheduler_g",
         "lr_scheduler_d")
 
@@ -48,15 +61,20 @@ def find_checkpoint(model_save_path: str, config: Config, epoch) -> str:
     the directory, so the two packages would enhance with different weights."""
     stem = os.path.join(model_save_path, ckpt_name(config.version, config.adv_loss_type, epoch))
     pth, orbax = os.path.exists(stem + ".pth"), os.path.isdir(stem)
+    # the export goes to another models directory: beside the orbax one it
+    # would make this same pair
+    other = os.path.join("NEW_ROOT", config.version, config.model_save_path)
     if pth and orbax:
         raise RuntimeError(
             f"{stem}.pth and the orbax directory {stem} both exist: the JAX Tester reads the "
             "directory and the port the .pth, so which weights enhance would depend on the "
-            "package; move one away (the orbax export is ROADMAP queue 1 item 4)")
+            f"package; move one away, or export the directory with "
+            f"`{export_command(stem, other)}` and run with --save_root_dir NEW_ROOT")
     if pth:
         return stem + ".pth"
     if orbax:
-        raise NotImplementedError(f"{stem}: {ROADMAP_ORBAX}")
+        raise NotImplementedError(f"{orbax_refusal(stem, other)}, then run with "
+                                  "--save_root_dir NEW_ROOT")
     raise FileNotFoundError(f"no checkpoint for epoch {epoch}: {stem}[.pth]")
 
 
