@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from uegan_tpu_torch/csrc/ (one nvcc
-a source, started together) and runs eleven phases, each of which ends the
+a source, started together) and runs twelve phases, each of which ends the
 run with a non-zero exit on failure:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
@@ -162,6 +162,18 @@ run with a non-zero exit on failure:
    the padded input; the peak device memory and seconds with 4 such
    requests at once).
 
+12. export: uegan_tpu_torch/tools/export_model.py from a reference .pth of
+   the phase-4 generator (cd 32, bf16): the packed forward at 512 px B=8,
+   int8_pallas at 512 px B=2, --u8_io at 512 px B=2 and the strips at
+   2048 px B=1, each exported (seconds and size printed), loaded and run in
+   a fresh interpreter that loads no jax and no uegan_tpu module: bit-equal
+   to the eager make_fast_eval on the same weights and input (u8 in u8),
+   one call's launches equal to one eager call's (packed and u8: C 1, B 3,
+   D 1; int8_pallas: A 4, B 3, C 1, D 1, E 1; strips: C 1, B 2, D 1) and to
+   the ops in the program's graph; each program's ms per forward beside the
+   eager forward's (CUDA events, in turns); then torch.library.opcheck on
+   every kernel's op at a main-path shape on the card.
+
 It then prints the kernels' JSON line and, last, the device JSON line.  It
 exits non-zero without a result where CUDA is unavailable or where the
 uegan_tpu_torch package is not beside this file.
@@ -170,6 +182,7 @@ uegan_tpu_torch package is not beside this file.
 from __future__ import annotations
 
 import contextlib
+import gc
 import http.client
 import io
 import json
@@ -227,6 +240,15 @@ SERVE_SEQUENTIAL = 50
 SERVE_CLIENTS = (16, 64)
 SERVE_NATIVE = (2000, 3000)
 SERVE_NATIVE_AT_ONCE = 4
+# phase 12, export: (name, hw, batch, --quantized, --u8_io) of each program
+# exported and held to the eager forward, and the launches one call makes
+EXPORT_CASES = [("packed", IMG, 8, "", False), ("int8_pallas", IMG, 2, "int8_pallas", False),
+                ("u8", IMG, 2, "", True), ("strips", 2048, 1, "", False)]
+EXPORT_LAUNCHES = {"packed": {"s2d_convert": 1, "upsample2x": 3, "residual_tail_d2s": 1},
+                   "int8_pallas": {"gam_stats": 4, "upsample2x": 3, "s2d_convert": 1,
+                                   "residual_tail_d2s": 1, "packed_conv_int8": 1},
+                   "u8": {"s2d_convert": 1, "upsample2x": 3, "residual_tail_d2s": 1},
+                   "strips": {"s2d_convert": 1, "upsample2x": 2, "residual_tail_d2s": 1}}
 KERNELS = ("gam_stats", "upsample2x", "s2d_convert", "residual_tail_d2s", "packed_conv_int8",
            "packed_conv", "gam_stats_bwd", "upsample2x_bwd")
 # the train slice: 256 px crops of 512, batch 10, so G runs on 20 images
@@ -2721,6 +2743,186 @@ def phase_serve(dev, card: str, tmp: str) -> dict:
     return launches
 
 
+# each custom op (ops/_build.py:custom_op) by the kernel it launches
+OP_KERNELS = {"gam_mean_std": "gam_stats", "gam_mean_std_train": "gam_stats",
+              "gam_mean_std_backward": "gam_stats_bwd", "upsample2x": "upsample2x",
+              "upsample2x_backward": "upsample2x_bwd", "s2d_convert": "s2d_convert",
+              "residual_tail_d2s": "residual_tail_d2s", "packed_conv": "packed_conv",
+              "packed_conv_int8": "packed_conv_int8"}
+
+# a fresh interpreter for phase 12: load each exported program, run it once
+# on its saved input with the launch counts set to 0, save its output, and
+# fail where any jax or uegan_tpu module was loaded
+EXPORT_LOAD = """
+import json
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from uegan_tpu_torch.tools.export_model import kernel_calls, load_exported
+torch.backends.cudnn.allow_tf32 = True
+torch.backends.cuda.matmul.allow_tf32 = False
+device, root, out = sys.argv[2], sys.argv[3], {}
+for name in sys.argv[4:]:
+    fn = load_exported(f"{root}/{name}.pt2")
+    x = torch.from_numpy(np.load(f"{root}/{name}.in.npy")).to(device)
+    chip_smoke.reset_counts()
+    y = fn(x)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out[name] = {"launches": chip_smoke.counts(), "graph": kernel_calls(fn.program)}
+    np.save(f"{root}/{name}.out.npy", (y if y.dtype == torch.uint8 else y.float()).cpu().numpy())
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'uegan_tpu') or m.startswith('jax_'))
+assert not bad, bad
+print(json.dumps(out))
+"""
+
+
+def export_opcheck(dev) -> None:
+    """torch.library.opcheck on every kernel's op at one main-path shape on
+    the card (the CUDA impls against their fake kernels; A and B with inputs
+    that require grad, so A' and B' run as their registered backwards)."""
+    import torch
+
+    from uegan_tpu_torch.ops import gam_stats
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    r = lambda *shape, dt=torch.bfloat16: torch.randn(shape, generator=gen, device=dev).to(dt)
+    i8 = lambda *shape: torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                      dtype=torch.int8)
+    x = r(2, 64, 64, 128)  # ga3's input at 512 px
+    mean32, var32 = gam_stats.plain_stats32(x)
+    cases = {
+        "s2d_convert": (r(2, IMG, IMG, 3, dt=torch.float32), torch.bfloat16),
+        "residual_tail_d2s": (r(2, HP, HP, 12), r(2, HP, HP, 12)),
+        "upsample2x": (r(2, 128, 128, 64).requires_grad_(),),
+        "upsample2x_backward": (r(2, 256, 256, 64),),
+        "gam_mean_std": (x, 1e-5),
+        "gam_mean_std_train": (x.clone().requires_grad_(), 1e-5),
+        "gam_mean_std_backward": (x, mean32.contiguous(), var32.contiguous(), r(2, 1, 1, 128),
+                                  r(2, 1, 1, 128), 1e-5),
+        "packed_conv": (r(2, HP, HP, 64), r(128, 64, 3, 3), r(128), 1, "leaky"),
+        "packed_conv_int8": (i8(2, HP, HP, 128), i8(128, 128, 1, 1),
+                             r(128, dt=torch.float32).abs() * 1e-3, r(128, dt=torch.float32), 0,
+                             "none", None, None, False),
+    }
+    for name, args in cases.items():
+        result = torch.library.opcheck(getattr(torch.ops.uegan_torch, name).default, args)
+        torch.cuda.synchronize()
+        if set(result.values()) != {"SUCCESS"}:
+            raise AssertionError(f"opcheck {name}: {result}")
+        log("12 export", f"opcheck uegan_torch::{name} on the card: {sorted(result)} passed")
+
+
+def phase_export(dev, card: str, tmp: str) -> dict:
+    """Phase 12: tools/export_model.py on the card at the default width (cd
+    32, the seeded generator of phase 4 from a reference .pth): each program
+    of EXPORT_CASES, loaded and run in a fresh interpreter that loads no jax
+    and no uegan_tpu module, bit-equal to the eager make_fast_eval on the
+    same weights and input (u8 in u8) and launching the kernels as one eager
+    call does; its export seconds, size, and CUDA-event ms beside the eager
+    forward's (in turns: eager, program, program, eager); then opcheck on
+    every op.  Returns the launches of each program's call."""
+    import numpy as np
+    import torch
+
+    from uegan_tpu_torch.config import Config
+    from uegan_tpu_torch.infer.packed import make_fast_eval
+    from uegan_tpu_torch.models.generator import Generator
+    from uegan_tpu_torch.tools.export_model import export_generator, load_exported
+    from uegan_tpu_torch.utils.checkpoint import generator_state, load_pth
+    from uegan_tpu_torch.utils.image_io import normalize_u8, quantize_u8
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, sd = seeded_generator(torch.bfloat16, "cpu")
+    write_pth(tmp, sd)
+    pth = os.path.join(tmp, "UEGAN-FiveK", "models", "UEGAN-FiveK_rahinge_92.pth")
+    zero = dict.fromkeys(KERNELS, 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    eager, programs = {}, {}
+    for name, hw, b, quant, u8 in EXPORT_CASES:
+        path = os.path.join(tmp, f"{name}.pt2")
+        t0 = time.time()
+        size = export_generator(path, pth, hw, b, quantized=quant, platforms=(dev.type,),
+                                u8_io=u8)
+        secs = time.time() - t0
+        log("12 export", f"{name}: {hw}px B={b} exported in {secs:.1f} s, {size / 1e6:.2f} MB "
+                         f"[{card}]")
+        cfg = Config(quantized_inference=quant).validate()
+        g = Generator(conv_dim=cfg.g_conv_dim, dtype=torch.bfloat16)
+        g.load_state_dict(generator_state(load_pth(pth), ema=cfg.ema_eval))
+        fn = make_fast_eval(g.to(dev).eval(), cfg)
+        if u8:
+            x = torch.randint(0, 256, (b, hw, hw, 3), generator=gen, device=dev,
+                              dtype=torch.uint8)
+            step = lambda x, fn=fn: quantize_u8(fn(normalize_u8(x)))
+        else:
+            x = torch.rand((b, hw, hw, 3), generator=gen, device=dev) * 2 - 1
+            step = fn
+        with torch.inference_mode():
+            reset_counts()
+            y = step(x)
+            torch.cuda.synchronize()
+            launched = counts()
+        check_counts(f"one eager {name} forward", launched, {**zero, **EXPORT_LAUNCHES[name]})
+        np.save(os.path.join(tmp, f"{name}.in.npy"), x.cpu().numpy())
+        eager[name] = ((y if y.dtype == torch.uint8 else y.float()).cpu().numpy(), launched)
+        program = load_exported(path)
+        times = {"eager": [], "program": []}
+        iters = 10 if hw == IMG else 3
+        with torch.inference_mode():
+            for which in ("eager", "program", "program", "eager"):
+                f = step if which == "eager" else program
+                times[which].append(cuda_ms(lambda: f(x), iters=iters))
+        mean = {k: sum(v) / len(v) for k, v in times.items()}
+        log("12 export", f"{name}: {hw}px B={b}: the program {mean['program']:.3f} ms/forward "
+                         f"(runs {times['program']}), the eager forward {mean['eager']:.3f} "
+                         f"(runs {times['eager']}) [{card}]")
+        programs[name] = mean
+        del program, fn, g
+
+    # the fresh interpreter shares the card: hand back the blocks this
+    # process's allocator keeps from the earlier phases (tens of GiB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = HERE
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_LOAD, HERE, dev.type, tmp,
+                           *[c[0] for c in EXPORT_CASES]],
+                          cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"loading the exported programs in a fresh interpreter failed:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
+    fresh = json.loads(proc.stdout.splitlines()[-1])
+    log("12 export", f"a fresh interpreter (no jax, no uegan_tpu module) loaded and ran the "
+                     f"{len(fresh)} programs in {time.time() - t0:.1f} s")
+    launches = {}
+    for name, *_ in EXPORT_CASES:
+        got = np.load(os.path.join(tmp, f"{name}.out.npy"))
+        want, launched = eager[name]
+        if got.shape != want.shape or got.dtype != want.dtype or not np.array_equal(got, want):
+            diff = (np.abs(got.astype(np.float64) - want.astype(np.float64)).max()
+                    if got.shape == want.shape else "shape")
+            raise AssertionError(f"the exported {name} program differs from the eager forward: "
+                                 f"{got.shape} {got.dtype} vs {want.shape} {want.dtype}, "
+                                 f"max |d| {diff}")
+        check_counts(f"one call of the exported {name} program", fresh[name]["launches"],
+                     launched)
+        graph = dict(zero)
+        for op, n in fresh[name]["graph"].items():
+            graph[OP_KERNELS[op]] += n
+        check_counts(f"the exported {name} program's graph", graph, launched)
+        launches[f"export_{name}"] = fresh[name]["launches"]
+        log("12 export", f"{name}: the fresh interpreter's output bit-equal to the eager "
+                         f"forward ({got.dtype}); launches {fresh[name]['launches']}")
+    export_opcheck(dev)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2774,6 +2976,8 @@ def main() -> int:
         launches.update(phase_highres(dev, card, tmp))
     with tempfile.TemporaryDirectory(prefix="uegan_smoke_serve_") as tmp:
         launches.update(phase_serve(dev, card, tmp))
+    with tempfile.TemporaryDirectory(prefix="uegan_smoke_export_") as tmp:
+        launches.update(phase_export(dev, card, tmp))
 
     src = {"gam_stats": ("uegan_tpu_torch/csrc/gam_stats.cu",
                          "uegan_tpu/ops/pallas/gam_stats.py:66"),

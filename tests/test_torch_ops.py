@@ -414,7 +414,8 @@ def test_port_imports_no_jax():
             "uegan_tpu_torch.metrics.nima_cli, uegan_tpu_torch.losses.extra, "
             "uegan_tpu_torch.nima_train.cli, uegan_tpu_torch.nima_train.train, "
             "uegan_tpu_torch.infer.strips, uegan_tpu_torch.infer.native, "
-            "uegan_tpu_torch.infer.tiles, uegan_tpu_torch.serve.app; "
+            "uegan_tpu_torch.infer.tiles, uegan_tpu_torch.serve.app, "
+            "uegan_tpu_torch.tools.export_model; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'uegan_tpu') or m.startswith('jax_')); "
             "assert not bad, bad")

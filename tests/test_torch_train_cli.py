@@ -130,3 +130,17 @@ def test_sigterm_checkpoints_at_the_next_step_and_resumes(tmp_path, monkeypatch,
     res = cli.run(_train_argv(root, 1, resume=-1))
     assert res["steps"] == 2
     assert "loaded trained models (epochs: 0.5)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", [["--remat", "true"], ["--cache_data", "true"],
+                                  ["--profile_dir", "profile"]])
+def test_unported_train_flags_raise(flag, tmp_path, monkeypatch):
+    """JAX's --remat, --cache_data and --profile_dir are not ported: a train
+    run that asks for one stops before it starts, naming the ROADMAP item,
+    rather than running without it."""
+    from uegan_tpu_torch import cli
+
+    monkeypatch.setenv("UEGAN_TORCH_DEVICE", "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+        cli.run(_train_argv(str(tmp_path / "results"), 1) + flag)
+    assert not os.path.exists(tmp_path / "results")

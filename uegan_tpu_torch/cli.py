@@ -50,6 +50,12 @@ def check_supported(args: Config) -> None:
             (args.optimizer_type != "adam", "--optimizer_type rmsprop: not ported (optax adds "
                                             "eps inside the root, torch outside it)"),
             (args.use_tensorboard, "--use_tensorboard true: TensorBoard logging is not ported"),
+            (args.remat, "--remat true: rematerializing the conv blocks (torch.utils.checkpoint) "
+                         "is ROADMAP queue 1 item 6"),
+            (args.cache_data, "--cache_data true: the RAM cache of decoded train images is "
+                              "ROADMAP queue 1 item 6"),
+            (bool(args.profile_dir), f"--profile_dir {args.profile_dir}: the profiler trace and "
+                                     "the step timing line are ROADMAP queue 1 item 6"),
         ]
         for hit, why in train_unsupported:
             if hit:

@@ -41,6 +41,7 @@ from uegan_tpu_torch.ops.resize2x import upsample2x
 from uegan_tpu_torch.ops.s2d_fuse import (depth_to_space, residual_tail_d2s, s2d_convert,
                                           space_to_depth)
 from uegan_tpu_torch.train.step import make_eval_step
+from uegan_tpu_torch.utils.cache import tensor_cache
 
 __all__ = ["space_to_depth", "depth_to_space", "pack_generator_params", "make_packed_eval",
            "make_fast_eval"]
@@ -260,12 +261,13 @@ def pack_generator_params(state: Dict, conv_dim: int,
 # ---------------------------------------------------------------------------
 # packed ops (NHWC)
 # ---------------------------------------------------------------------------
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def _pad_sources(length: int, pad: int, device: torch.device) -> Tuple[torch.Tensor, ...]:
     """Rows that feed the pad rows of one axis: (phase-0 and phase-1 sources
     of the lead rows, the same of the trail rows), as index tensors.  Like
     every cached tensor here it is made outside inference mode, so that a
-    forward with autograd on can use it after one under inference mode."""
+    forward with autograd on can use it after one under inference mode, and
+    never kept from a trace (utils/cache.py)."""
     lead, trail = range(pad, 0, -1), range(1, pad + 1)
     srcs = ([m for m in lead], [m - 1 for m in lead],
             [length - m for m in trail], [length - m - 1 for m in trail])
@@ -273,7 +275,7 @@ def _pad_sources(length: int, pad: int, device: torch.device) -> Tuple[torch.Ten
         return tuple(torch.tensor(s, device=device) for s in srcs)
 
 
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def _phase0_channels(parts: Tuple[int, ...], axis: int, device: torch.device) -> torch.Tensor:
     """Bool mask over the packed channels: True where the channel's phase
     along ``axis`` (0: rows, pi; 1: columns, pj) is 0."""
@@ -379,7 +381,7 @@ def _interp_matrix_np(in_size: int, out_size: int) -> np.ndarray:
     return m.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@tensor_cache(maxsize=16)
 def _phase_matrix(in_size: int, out_size: int, device: torch.device,
                   dtype: torch.dtype) -> torch.Tensor:
     """(2, out/2, in): the interpolation matrix's rows split by output phase,

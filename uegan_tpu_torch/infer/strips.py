@@ -54,6 +54,7 @@ from uegan_tpu_torch.models.generator import Generator, check_input_hw
 from uegan_tpu_torch.ops.conv_int8 import conv2d_int8
 from uegan_tpu_torch.ops.resize2x import upsample2x
 from uegan_tpu_torch.ops.s2d_fuse import residual_tail_d2s, s2d_convert
+from uegan_tpu_torch.utils.cache import tensor_cache
 
 Channels = Union[None, int, Sequence[int]]
 BF16 = torch.bfloat16
@@ -114,7 +115,7 @@ def pick_strip_chunks(n: int, s: int, hs: int, wp: int) -> int:
 # ---------------------------------------------------------------------------
 # rows, slabs and halos (NHWC, dim 1 = rows)
 # ---------------------------------------------------------------------------
-@functools.lru_cache(maxsize=64)
+@tensor_cache(maxsize=64)
 def _reflect_rows(length: int, pad: int, device: torch.device) -> Tuple[torch.Tensor, ...]:
     """The rows the torch-reflect pad rows of an unpacked axis copy: (the
     leading pad rows' sources, the trailing ones'), made outside inference
@@ -294,7 +295,7 @@ def _strip_up3_matrices(hp: int, s: int, r: int, m: int):
     return mats.astype(np.float32), starts, win
 
 
-@functools.lru_cache(maxsize=16)
+@tensor_cache(maxsize=16)
 def _strip_constants(hp: int, s: int, r: int, m: int, device: torch.device,
                      dtype: torch.dtype) -> Dict:
     """The H resize matrices of one input shape's strips, on ``device`` in
@@ -308,7 +309,7 @@ def _strip_constants(hp: int, s: int, r: int, m: int, device: torch.device,
         return {"m3": on(mats3), "starts3": starts3, "win3": win3, "m4": on(m4)}
 
 
-@functools.lru_cache(maxsize=32)
+@tensor_cache(maxsize=32)
 def _col_taps(w: int, device: torch.device) -> Tuple[torch.Tensor, ...]:
     """The x2 align-corners resize of w columns as two taps an output column
     (the rows of infer/packed.py:_interp_matrix_np): (lo, hi, weight of lo,

@@ -9,6 +9,14 @@ an edited source or header builds anew and an unchanged tree is loaded as
 it is.  Nothing is built or loaded at import time:
 this module is imported on machines with no CUDA toolkit, where only the
 plain PyTorch versions of the kernels run.
+
+Each kernel is a ``torch.library`` custom op in the ``uegan_torch``
+namespace (:func:`custom_op`): its CUDA impl launches the kernel, its CPU
+impl is the plain PyTorch version, and its fake kernel gives the output's
+shape, dtype and strides without running either, so that ``torch.export``
+(tools/export_model.py) traces a forward through the kernels and the
+exported program launches the same kernels.  Importing ``uegan_tpu_torch.ops``
+registers every op.
 """
 
 from __future__ import annotations
@@ -69,6 +77,10 @@ ACTS = {"none": 0, "leaky": 1, "tanh": 2}  # the C entry points' act argument
 # (csrc/packed_conv_body.cuh)
 _BODY_ERRORS = {10001: "cuTensorMapEncodeTiled is not available",
                 10002: "cuTensorMapEncodeTiled refused a tensor map"}
+
+NAMESPACE = "uegan_torch"
+# the ops' definitions, impls and backwards live as long as the process
+ops_library = torch.library.Library(NAMESPACE, "DEF")
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()  # one build and load, whichever thread launches first
@@ -199,13 +211,42 @@ def check_nhwc(x, what: str, batch_stride: bool = False) -> None:
         raise ValueError(f"{what}: device {x.device} is neither cpu nor cuda")
 
 
+def custom_op(schema: str, cpu, cuda, fake):
+    """Define ``uegan_torch::<schema>`` with its CPU impl (the plain version),
+    its CUDA impl (the launch, which counts itself) and its fake kernel, and
+    return the op.  The ops are registered through ``torch.library.Library``
+    rather than ``torch.library.custom_op``, whose Python wrapper costs more
+    a call."""
+    name = schema.split("(", 1)[0]
+    ops_library.define(schema)
+    ops_library.impl(name, cpu, "CPU")
+    ops_library.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=ops_library)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+def fresh(out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
+    """``out`` contiguous and sharing no memory with ``inputs``: a custom
+    op's output may not alias its input, where a plain version's reshape
+    or cast could."""
+    out = out.contiguous()
+    if any(out.untyped_storage().data_ptr() == t.untyped_storage().data_ptr() for t in inputs):
+        out = out.clone()
+    return out
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def refuse_grad(what: str, *tensors) -> None:
     """Raise where autograd would have to differentiate a kernel that has no
     backward: a launch writes its output through a raw pointer, so the
     result would carry no gradient and nothing would say so.  Kernels C-F
     run only under ``torch.no_grad`` or ``torch.inference_mode`` on every
     path; A and B have backward kernels (ops/gam_stats.py, ops/resize2x.py)."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+    if needs_grad(*tensors):
         raise RuntimeError(
             f"{what}: the CUDA kernel has no backward and its output would carry no gradient; "
             "call it under torch.no_grad() or torch.inference_mode(), or on tensors that do "

@@ -2,14 +2,18 @@
 
 Port of uegan_tpu/ops/pallas/gam_stats.py:gam_mean_std_pallas to a CUDA
 kernel for Hopper (csrc/gam_stats.cu; the design note is in its header).
-``gam_mean_std`` launches the kernel for a CUDA tensor and raises if it
-cannot; for a CPU tensor it runs ``plain``, the PyTorch version of the same
-function, whose autograd is the CPU gradient.  Where autograd needs the
-gradient of a CUDA call, the call is a ``torch.autograd.Function``: its
-forward launches the kernel, which then also writes the f32 mean and var,
-and its backward launches ``gam_mean_std_backward`` (csrc/gam_stats_bwd.cu,
-on A's partition), whose plain version is ``plain_backward``.
-``<wrapper>.launches`` counts kernel launches.
+``gam_mean_std`` checks its input and calls the custom op
+``uegan_torch::gam_mean_std`` (ops/_build.py:custom_op), which launches the
+kernel for a CUDA tensor and raises if it cannot, and for a CPU tensor runs
+``plain``, the PyTorch version of the same function; a CPU call that
+autograd records takes ``plain`` directly, whose autograd is the CPU
+gradient.  Where autograd needs the gradient of a CUDA call, the call is
+the op ``uegan_torch::gam_mean_std_train``: the same kernel, which then
+also writes the f32 mean and var, with a registered backward that calls
+``gam_mean_std_backward``, the op ``uegan_torch::gam_mean_std_backward``
+(csrc/gam_stats_bwd.cu, on A's partition), whose plain version is
+``plain_backward``.  ``<wrapper>.launches`` counts kernel launches, in the
+CUDA impls only, so a trace (the fake kernels) counts none.
 """
 
 from __future__ import annotations
@@ -119,33 +123,40 @@ def _launch(x: torch.Tensor, eps: float, keep32: bool) -> tuple:
     return mean, std, mean32, var32
 
 
-class _GamMeanStd(torch.autograd.Function):
-    """Kernel A forward, kernel A' backward."""
+def _fake_stats(x: torch.Tensor) -> torch.Tensor:
+    return x.new_empty((x.shape[0], 1, 1, x.shape[3]))
 
-    @staticmethod
-    def forward(ctx, x, eps):
-        mean, std, mean32, var32 = _launch(x, eps, keep32=True)
-        ctx.save_for_backward(x, mean32, var32)
-        ctx.eps = eps
-        return mean, std
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dmean, dstd):
-        x, mean32, var32 = ctx.saved_tensors
-        return gam_mean_std_backward(x, mean32, var32, dmean, dstd, ctx.eps), None
+def _fake_stats32(x: torch.Tensor) -> torch.Tensor:
+    return x.new_empty((x.shape[0], 1, 1, x.shape[3]), dtype=torch.float32)
+
+
+gam_mean_std_op = _build.custom_op(
+    "gam_mean_std(Tensor x, float eps) -> (Tensor, Tensor)",
+    cpu=lambda x, eps: tuple(_build.fresh(t, x) for t in plain(x, eps)),
+    cuda=lambda x, eps: _launch(x, eps, keep32=False)[:2],
+    fake=lambda x, eps: (_fake_stats(x), _fake_stats(x)))
+
+# A under autograd: the same kernel, which then also writes the f32 mean and
+# the f32 var before the clamp, the two vectors A' reads; a second op, since
+# an op's outputs are fixed by its schema
+gam_mean_std_train_op = _build.custom_op(
+    "gam_mean_std_train(Tensor x, float eps) -> (Tensor, Tensor, Tensor, Tensor)",
+    cpu=lambda x, eps: tuple(_build.fresh(t, x) for t in (*plain(x, eps), *plain_stats32(x))),
+    cuda=lambda x, eps: _launch(x, eps, keep32=True),
+    fake=lambda x, eps: (_fake_stats(x), _fake_stats(x), _fake_stats32(x), _fake_stats32(x)))
 
 
 def gam_mean_std(x: torch.Tensor, eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (N, H, W, C) contiguous, float32 or bfloat16 -> mean, std each
     (N, 1, 1, C) in x.dtype; unbiased variance, eps inside the root."""
     _build.check_nhwc(x, "gam_mean_std")
-    if x.device.type == "cpu":
-        return plain(x, eps)
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _GamMeanStd.apply(x, eps)
-    mean, std, _, _ = _launch(x, eps, keep32=False)
-    return mean, std
+    if _build.needs_grad(x):
+        if x.device.type == "cpu":
+            return plain(x, eps)  # the CPU gradient, as before the op
+        mean, std, _, _ = gam_mean_std_train_op(x, eps)
+        return mean, std
+    return gam_mean_std_op(x, eps)
 
 
 def plain_stats32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -188,20 +199,10 @@ def backward_plan(x: torch.Tensor, dx: torch.Tensor, dmean: torch.Tensor,
     return split_plan(n, h * w, c, x.element_size(), address)
 
 
-def gam_mean_std_backward(x: torch.Tensor, mean32: torch.Tensor, var32: torch.Tensor,
-                          dmean: Optional[torch.Tensor], dstd: Optional[torch.Tensor],
-                          eps: float = 1e-5) -> torch.Tensor:
-    """Kernel A': the gradient of ``gam_mean_std`` at x (CUDA, contiguous
-    NHWC) given dmean and dstd (N, 1, 1, C) in x.dtype (None for zero) and
-    kernel A's f32 mean and var of x -> dx in x.dtype.  A CPU tensor takes
-    ``plain_backward``."""
-    _build.check_nhwc(x, "gam_mean_std_backward")
+def _backward_cuda(x: torch.Tensor, mean32: torch.Tensor, var32: torch.Tensor,
+                   dmean: torch.Tensor, dstd: torch.Tensor, eps: float) -> torch.Tensor:
+    """The launch of kernel A': the CUDA impl of ``uegan_torch::gam_mean_std_backward``."""
     n, h, w, c = x.shape
-    zeros = lambda: torch.zeros((n, 1, 1, c), dtype=x.dtype, device=x.device)
-    dmean = zeros() if dmean is None else dmean.to(x.dtype).contiguous()
-    dstd = zeros() if dstd is None else dstd.to(x.dtype).contiguous()
-    if x.device.type == "cpu":
-        return plain_backward(x, mean32, var32, dmean, dstd, eps)
     for name, t in (("mean32", mean32), ("var32", var32)):
         if t.dtype != torch.float32 or t.shape != (n, 1, 1, c) or not t.is_contiguous():
             raise ValueError(f"gam_mean_std_backward: {name} must be contiguous float32 "
@@ -221,6 +222,48 @@ def gam_mean_std_backward(x: torch.Tensor, mean32: torch.Tensor, var32: torch.Te
     _build.check(lib, err, "gam_mean_std_backward")
     gam_mean_std_backward.launches += 1
     return dx
+
+
+gam_mean_std_backward_op = _build.custom_op(
+    "gam_mean_std_backward(Tensor x, Tensor mean32, Tensor var32, Tensor dmean, Tensor dstd, "
+    "float eps) -> Tensor",
+    cpu=lambda x, mean32, var32, dmean, dstd, eps: _build.fresh(
+        plain_backward(x, mean32, var32, dmean, dstd, eps), x),
+    cuda=_backward_cuda, fake=lambda x, mean32, var32, dmean, dstd, eps: torch.empty_like(x))
+
+
+def gam_mean_std_backward(x: torch.Tensor, mean32: torch.Tensor, var32: torch.Tensor,
+                          dmean: Optional[torch.Tensor], dstd: Optional[torch.Tensor],
+                          eps: float = 1e-5) -> torch.Tensor:
+    """Kernel A': the gradient of ``gam_mean_std`` at x (CUDA, contiguous
+    NHWC) given dmean and dstd (N, 1, 1, C) in x.dtype (None for zero) and
+    kernel A's f32 mean and var of x -> dx in x.dtype.  A CPU tensor takes
+    ``plain_backward``."""
+    _build.check_nhwc(x, "gam_mean_std_backward")
+    n, h, w, c = x.shape
+    zeros = lambda: torch.zeros((n, 1, 1, c), dtype=x.dtype, device=x.device)
+    dmean = zeros() if dmean is None else dmean.to(x.dtype).contiguous()
+    dstd = zeros() if dstd is None else dstd.to(x.dtype).contiguous()
+    return gam_mean_std_backward_op(x, mean32, var32, dmean, dstd, eps)
+
+
+def _train_setup(ctx, inputs, output) -> None:
+    x, eps = inputs
+    _, _, mean32, var32 = output
+    ctx.mark_non_differentiable(mean32, var32)
+    ctx.save_for_backward(x, mean32, var32)
+    ctx.eps = eps
+
+
+def _train_backward(ctx, dmean, dstd, _dmean32, _dvar32):
+    x, mean32, var32 = ctx.saved_tensors
+    return gam_mean_std_backward(x, mean32, var32, dmean, dstd, ctx.eps), None
+
+
+# A' is the backward of A under autograd (once differentiable: A' has no
+# backward of its own)
+torch.library.register_autograd(gam_mean_std_train_op, _train_backward,
+                                setup_context=_train_setup, lib=_build.ops_library)
 
 
 gam_mean_std.launches = 0

@@ -7,10 +7,12 @@ shares with kernel E (TMA + wgmma); float32 runs on the CUDA cores, since
 TF32 tensor cores would miss its tolerance.  The JAX
 package wires the TPU kernel nowhere (only its tests call it), and so does
 the port: ``chip_smoke.py`` holds the kernel against its plain version and
-times it.  ``packed_conv`` launches the kernel for a CUDA tensor and raises
-if it cannot; for a CPU tensor it runs ``plain_packed_conv``, the PyTorch
-version (``F.conv2d`` in f32 on the zero-padded input, bias, act).
-``packed_conv.launches`` counts kernel launches.
+times it.  ``packed_conv`` checks its inputs and calls the custom op
+``uegan_torch::packed_conv`` (ops/_build.py:custom_op), which launches the
+kernel for a CUDA tensor and raises if it cannot, and for a CPU tensor runs
+``plain_packed_conv``, the PyTorch version (``F.conv2d`` in f32 on the
+zero-padded input, bias, act).  ``packed_conv.launches`` counts kernel
+launches, in the CUDA impl only.
 
 Both zero-pad the rows and the columns; the TPU kernel wraps its columns,
 so only output columns [s0, W - s1) are specified by it.
@@ -59,6 +61,36 @@ def kernel_operands(xp: torch.Tensor, kp: torch.Tensor) -> tuple:
     return _build.tma_operand(xp, 8), _build.tma_operand(wts, 8)
 
 
+def _packed_conv_cuda(xp: torch.Tensor, kp: torch.Tensor, bias: torch.Tensor, s0: int,
+                      act: str) -> torch.Tensor:
+    """Kernel F's launch: the CUDA impl of ``uegan_torch::packed_conv``."""
+    n, l, w, _ = xp.shape
+    cout, _, kh, _ = kp.shape
+    if max(xp.numel(), n * l * w * cout) >= _INDEX_LIMIT:
+        raise ValueError(f"packed_conv: shape {tuple(xp.shape)} -> {cout} channels has 2^31 "
+                         "elements or more")
+    x, wts = kernel_operands(xp, kp)
+    b = bias.float().contiguous()
+    lib = _build.load()
+    with torch.cuda.device(xp.device):
+        out = torch.empty((n, l, w, cout), dtype=xp.dtype, device=xp.device)
+        err = lib.uegan_packed_conv(
+            x.data_ptr(), wts.data_ptr(), b.data_ptr(), out.data_ptr(), _build.dtype_code(xp),
+            n, l, w, x.shape[-1], cout, kh, s0, _build.ACTS[act],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, err, "packed_conv")
+    packed_conv.launches += 1
+    return out
+
+
+packed_conv_op = _build.custom_op(
+    "packed_conv(Tensor xp, Tensor kp, Tensor bias, int s0, str act) -> Tensor",
+    cpu=lambda xp, kp, bias, s0, act: _build.fresh(plain_packed_conv(xp, kp, bias, s0, act), xp),
+    cuda=_packed_conv_cuda,
+    fake=lambda xp, kp, bias, s0, act: xp.new_empty((*xp.shape[:3], kp.shape[0])))
+
+
 def packed_conv(xp: torch.Tensor, kp: torch.Tensor, bias: torch.Tensor, s0: int,
                 act: str = "none") -> torch.Tensor:
     """xp (N, L, W, Cin) float32 or bfloat16, kp (Cout, Cin, S, S) and bias
@@ -77,26 +109,11 @@ def packed_conv(xp: torch.Tensor, kp: torch.Tensor, bias: torch.Tensor, s0: int,
                          f"({xp.dtype}, {xp.device}), bias ({cout},)")
     if act not in _build.ACTS:
         raise ValueError(f"packed_conv: unknown act {act!r}")
-    if xp.device.type == "cpu":
-        return plain_packed_conv(xp, kp, bias, s0, act)
-    _build.refuse_grad("packed_conv", xp, kp, bias)
-    n, l, w, _ = xp.shape
-    if max(xp.numel(), n * l * w * cout) >= _INDEX_LIMIT:
-        raise ValueError(f"packed_conv: shape {tuple(xp.shape)} -> {cout} channels has 2^31 "
-                         "elements or more")
-    x, wts = kernel_operands(xp, kp)
-    b = bias.float().contiguous()
-    lib = _build.load()
-    with torch.cuda.device(xp.device):
-        out = torch.empty((n, l, w, cout), dtype=xp.dtype, device=xp.device)
-        err = lib.uegan_packed_conv(
-            x.data_ptr(), wts.data_ptr(), b.data_ptr(), out.data_ptr(), _build.dtype_code(xp),
-            n, l, w, x.shape[-1], cout, kh, s0, _build.ACTS[act],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, err, "packed_conv")
-    packed_conv.launches += 1
-    return out
+    if xp.device.type == "cpu" and _build.needs_grad(xp, kp, bias):
+        return plain_packed_conv(xp, kp, bias, s0, act)  # the CPU gradient, as before the op
+    if xp.device.type == "cuda":
+        _build.refuse_grad("packed_conv", xp, kp, bias)
+    return packed_conv_op(xp, kp, bias, s0, act)
 
 
 packed_conv.launches = 0

@@ -6,11 +6,15 @@ Port of uegan_tpu/ops/pallas/packed_conv_int8.py:packed_conv_int8_pallas
 (csrc/packed_conv_int8.cu, on the tensor-core body it shares with kernel
 F, csrc/packed_conv_body.cuh: TMA + wgmma s8 -> s32; the design note is in
 the header).
-``packed_conv_int8`` launches the kernel for a CUDA tensor and raises if it
-cannot; for a CPU tensor it runs ``plain_packed_conv_int8``, the PyTorch
-version: :func:`~uegan_tpu_torch.ops.conv_int8.conv2d_int8` on the
-zero-padded input, then :func:`int8_epilogue` in f32 in the TPU kernel's
-order.  ``packed_conv_int8.launches`` counts kernel launches.
+``packed_conv_int8`` checks its inputs and calls the custom op
+``uegan_torch::packed_conv_int8`` (ops/_build.py:custom_op; ``mul`` and
+``out_scale`` optional in its schema), which launches the kernel for a CUDA
+tensor and raises if it cannot, and for a CPU tensor runs
+``plain_packed_conv_int8``, the PyTorch version:
+:func:`~uegan_tpu_torch.ops.conv_int8.conv2d_int8` on the zero-padded
+input, then :func:`int8_epilogue` in f32 in the TPU kernel's order.
+``packed_conv_int8.launches`` counts kernel launches, in the CUDA impl only.
+``eligible`` stays host code outside the op.
 
 Both zero-pad the rows and the columns.  The TPU kernel wraps its columns
 instead, so only output columns [s0, W - s1) are specified by it; callers
@@ -112,21 +116,10 @@ def kernel_operands(xp: torch.Tensor, kp: torch.Tensor) -> tuple:
     return _build.tma_operand(xp, 16), _build.tma_operand(kp.permute(0, 2, 3, 1), 16)
 
 
-def packed_conv_int8(xp: torch.Tensor, kp: torch.Tensor, w_scale: torch.Tensor,
-                     bias: torch.Tensor, s0: int, act: str = "none",
-                     mul: Optional[torch.Tensor] = None, out_scale: Optional[float] = None,
-                     requant: bool = False) -> torch.Tensor:
-    """int8 conv of xp (N, L, W, Cin) with kp (Cout, Cin, S, S), zero-padded
-    by s0 lead and S-1-s0 trail rows and columns, then the epilogue:
-    ``y = acc * w_scale + bias`` (both (Cout,) float32), ``act`` (none,
-    leaky, tanh), ``y *= mul`` ((N, L, W, Cout) bfloat16) when given, and
-    bfloat16 out, or int8 ``clip(round(y / out_scale), -127, 127)`` with
-    ``requant`` (the reciprocal taken in float32)."""
-    _check(xp, kp, w_scale, bias, s0, act, mul)
-    xp = xp.contiguous()
-    if xp.device.type == "cpu":
-        return plain_packed_conv_int8(xp, kp, w_scale, bias, s0, act, mul, out_scale, requant)
-    _build.refuse_grad("packed_conv_int8", w_scale, bias, mul)
+def _packed_conv_int8_cuda(xp: torch.Tensor, kp: torch.Tensor, w_scale: torch.Tensor,
+                           bias: torch.Tensor, s0: int, act: str, mul: Optional[torch.Tensor],
+                           out_scale: Optional[float], requant: bool) -> torch.Tensor:
+    """Kernel E's launch: the CUDA impl of ``uegan_torch::packed_conv_int8``."""
     n, l, w, _ = xp.shape
     cout = kp.shape[0]
     if max(xp.numel(), n * l * w * cout) >= _INDEX_LIMIT:
@@ -151,6 +144,40 @@ def packed_conv_int8(xp: torch.Tensor, kp: torch.Tensor, w_scale: torch.Tensor,
     _build.check(lib, err, "packed_conv_int8")
     packed_conv_int8.launches += 1
     return out
+
+
+def _packed_conv_int8_fake(xp, kp, w_scale, bias, s0, act, mul, out_scale, requant):
+    return xp.new_empty((*xp.shape[:3], kp.shape[0]),
+                        dtype=torch.int8 if requant else torch.bfloat16)
+
+
+packed_conv_int8_op = _build.custom_op(
+    "packed_conv_int8(Tensor xp, Tensor kp, Tensor w_scale, Tensor bias, int s0, str act, "
+    "Tensor? mul, float? out_scale, bool requant) -> Tensor",
+    cpu=lambda xp, kp, w_scale, bias, s0, act, mul, out_scale, requant: _build.fresh(
+        plain_packed_conv_int8(xp, kp, w_scale, bias, s0, act, mul, out_scale, requant), xp),
+    cuda=_packed_conv_int8_cuda, fake=_packed_conv_int8_fake)
+
+
+def packed_conv_int8(xp: torch.Tensor, kp: torch.Tensor, w_scale: torch.Tensor,
+                     bias: torch.Tensor, s0: int, act: str = "none",
+                     mul: Optional[torch.Tensor] = None, out_scale: Optional[float] = None,
+                     requant: bool = False) -> torch.Tensor:
+    """int8 conv of xp (N, L, W, Cin) with kp (Cout, Cin, S, S), zero-padded
+    by s0 lead and S-1-s0 trail rows and columns, then the epilogue:
+    ``y = acc * w_scale + bias`` (both (Cout,) float32), ``act`` (none,
+    leaky, tanh), ``y *= mul`` ((N, L, W, Cout) bfloat16) when given, and
+    bfloat16 out, or int8 ``clip(round(y / out_scale), -127, 127)`` with
+    ``requant`` (the reciprocal taken in float32)."""
+    _check(xp, kp, w_scale, bias, s0, act, mul)
+    xp = xp.contiguous()
+    if xp.device.type == "cpu" and _build.needs_grad(w_scale, bias, mul):
+        # the CPU gradient, as before the op
+        return plain_packed_conv_int8(xp, kp, w_scale, bias, s0, act, mul, out_scale, requant)
+    if xp.device.type == "cuda":
+        _build.refuse_grad("packed_conv_int8", w_scale, bias, mul)
+    return packed_conv_int8_op(xp, kp, w_scale, bias, s0, act, mul,
+                               None if out_scale is None else float(out_scale), requant)
 
 
 packed_conv_int8.launches = 0

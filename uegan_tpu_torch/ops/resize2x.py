@@ -2,14 +2,16 @@
 
 Port of uegan_tpu/ops/pallas/resize2x.py:upsample2x_ac_pallas to a CUDA
 kernel for Hopper (csrc/upsample2x.cu; the design note is in its header).
-``upsample2x`` launches the kernel for a CUDA tensor and raises if it
-cannot; for a CPU tensor it runs ``plain``, the PyTorch version of the same
-function, whose autograd is the CPU gradient.  Where autograd needs the
-gradient of a CUDA call, the call is a ``torch.autograd.Function``: its
-forward launches the kernel and its backward launches
-``upsample2x_backward`` (B', the adjoint, in the same source; its tiles
-come from ``backward_plan``), whose plain version is ``plain_backward``.
-``<wrapper>.launches`` counts kernel launches.
+``upsample2x`` checks its input and calls the custom op
+``uegan_torch::upsample2x`` (ops/_build.py:custom_op), which launches the
+kernel for a CUDA tensor and raises if it cannot, and for a CPU tensor runs
+``plain``, the PyTorch version of the same function; a CPU call that
+autograd records takes ``plain`` directly, whose autograd is the CPU
+gradient.  The op's registered backward is ``upsample2x_backward``, the op
+``uegan_torch::upsample2x_backward`` (B', the adjoint, in the same source;
+its tiles come from ``backward_plan``), whose plain version is
+``plain_backward``.  ``<wrapper>.launches`` counts kernel launches, in the
+CUDA impls only, so a trace (the fake kernels) counts none.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from uegan_tpu_torch.ops import _build
 from uegan_tpu_torch.ops.gam_stats import load_width
 from uegan_tpu_torch.ops.resize import upsample2x_align_corners as plain
+from uegan_tpu_torch.utils.cache import tensor_cache
 
 _GRID_YZ_MAX = 65535  # CUDA's limit on gridDim.y (output rows) and gridDim.z (batch)
 
@@ -58,28 +61,19 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-class _Upsample2x(torch.autograd.Function):
-    """Kernel B forward, kernel B' backward."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return _launch(x)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dy):
-        return upsample2x_backward(dy)
+upsample2x_op = _build.custom_op(
+    "upsample2x(Tensor x) -> Tensor",
+    cpu=lambda x: _build.fresh(plain(x), x), cuda=_launch,
+    fake=lambda x: x.new_empty((x.shape[0], 2 * x.shape[1], 2 * x.shape[2], x.shape[3])))
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """x (N, H, W, C) contiguous, float32 or bfloat16 -> (N, 2H, 2W, C) in
     x.dtype, torch bilinear ``align_corners=True`` semantics, f32 math."""
     _build.check_nhwc(x, "upsample2x")
-    if x.device.type == "cpu":
-        return plain(x)
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _Upsample2x.apply(x)
-    return _launch(x)
+    if x.device.type == "cpu" and _build.needs_grad(x):
+        return plain(x)  # the CPU gradient, as before the op
+    return upsample2x_op(x)
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,7 +93,7 @@ def adjoint_matrix(n: int) -> np.ndarray:
     return m
 
 
-@functools.lru_cache(maxsize=None)
+@tensor_cache(maxsize=None)
 def _matrix(n: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     # made once per size, device and dtype, so that later calls copy nothing
     # from the host (a CUDA graph can capture them)
@@ -173,6 +167,21 @@ def _launch_backward(dy: torch.Tensor, plan: BackwardPlan) -> torch.Tensor:
     return dx
 
 
+def _backward_cuda(dy: torch.Tensor) -> torch.Tensor:
+    """B's backward kernel: the CUDA impl of ``uegan_torch::upsample2x_backward``."""
+    n, h2, w2, c = dy.shape
+    # dx comes from the caching allocator, aligned to far more than 16 bytes
+    plan = backward_plan(n, h2 // 2, w2 // 2, c, dy.element_size(), dy.data_ptr() % 16)
+    return _launch_backward(dy, plan)
+
+
+upsample2x_backward_op = _build.custom_op(
+    "upsample2x_backward(Tensor dy) -> Tensor",
+    cpu=lambda dy: _build.fresh(plain_backward(dy), dy), cuda=_backward_cuda,
+    fake=lambda dy: dy.new_empty((dy.shape[0], dy.shape[1] // 2, dy.shape[2] // 2,
+                                  dy.shape[3])))
+
+
 def upsample2x_backward(dy: torch.Tensor) -> torch.Tensor:
     """Kernel B': the gradient of ``upsample2x`` given dy (N, 2H, 2W, C),
     float32 or bfloat16 -> dx (N, H, W, C) in dy.dtype, f32 sums.  A CPU
@@ -181,12 +190,13 @@ def upsample2x_backward(dy: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"upsample2x_backward: dy {tuple(dy.shape)} has an odd H or W")
     dy = dy.contiguous()
     _build.check_nhwc(dy, "upsample2x_backward")
-    if dy.device.type == "cpu":
-        return plain_backward(dy)
-    n, h2, w2, c = dy.shape
-    # dx comes from the caching allocator, aligned to far more than 16 bytes
-    plan = backward_plan(n, h2 // 2, w2 // 2, c, dy.element_size(), dy.data_ptr() % 16)
-    return _launch_backward(dy, plan)
+    return upsample2x_backward_op(dy)
+
+
+# B' is B's backward (once differentiable: B' has no backward of its own)
+torch.library.register_autograd(
+    upsample2x_op, lambda ctx, dy: upsample2x_backward(dy),
+    setup_context=lambda ctx, inputs, output: None, lib=_build.ops_library)
 
 
 upsample2x.launches = 0

@@ -8,9 +8,13 @@ design note is in its header):
 - ``residual_tail_d2s``: depth_to_space(clip(res + xp, -1, 1)) with the add
   and clip in f32, the packed forward's exit (kernel D).
 
-Each wrapper launches its kernel for a CUDA tensor and raises if it cannot;
-for a CPU tensor it runs the plain PyTorch version (``plain_s2d_convert``,
-``plain_residual_tail_d2s``).  ``<wrapper>.launches`` counts kernel launches.
+Each wrapper checks its inputs and calls its custom op (``uegan_torch::
+s2d_convert``, ``uegan_torch::residual_tail_d2s``; ops/_build.py:custom_op),
+which launches the kernel for a CUDA tensor and raises if it cannot, and for
+a CPU tensor runs the plain PyTorch version (``plain_s2d_convert``,
+``plain_residual_tail_d2s``); a CPU call that autograd records takes the
+plain version directly.  ``<wrapper>.launches`` counts kernel launches, in
+the CUDA impl only, so a trace (the fake kernel) counts none.
 
 ``space_to_depth`` and ``depth_to_space`` are the layout transforms both
 plain versions are built from.  Channels are phase-major: packed channel
@@ -97,18 +101,9 @@ def plain_residual_tail_d2s(res: torch.Tensor, xp: torch.Tensor) -> torch.Tensor
     return depth_to_space(out)
 
 
-def s2d_convert(x: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """x (N, H, W, C) contiguous float32 or bfloat16, H and W even ->
-    space_to_depth(x) in ``out_dtype`` (float32 or bfloat16)."""
-    _build.check_nhwc(x, "s2d_convert")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"s2d_convert: out_dtype {out_dtype} is not float32 or bfloat16")
+def _s2d_cuda(x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """Kernel C's launch: the CUDA impl of ``uegan_torch::s2d_convert``."""
     n, h, w, c = x.shape
-    if h % 2 or w % 2:
-        raise ValueError(f"s2d_convert: H and W must be even, got {h}x{w}")
-    if x.device.type == "cpu":
-        return plain_s2d_convert(x, out_dtype)
-    _build.refuse_grad("s2d_convert", x)
     if x.numel() >= _INDEX_LIMIT:
         raise ValueError(f"s2d_convert: shape {tuple(x.shape)} has 2^31 elements or more")
     lib = _build.load()
@@ -129,24 +124,36 @@ def s2d_convert(x: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16) -> tor
     return out
 
 
-def residual_tail_d2s(res: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
-    """res, xp (N, Hp, Wp, 4C), one dtype (float32 or bfloat16), each image
-    contiguous and the images a batch stride apart (a contiguous batch, or a
-    window of rows of each image of one, as the strip executor's exit reads
-    its slabs) -> depth_to_space(clip(res + xp, -1, 1)) (N, 2Hp, 2Wp, C),
-    contiguous, in that dtype; the add and clip run in f32, and NaN passes
-    through as torch.clamp lets it."""
-    _build.check_nhwc(res, "residual_tail_d2s", batch_stride=True)
-    _build.check_nhwc(xp, "residual_tail_d2s", batch_stride=True)
-    if res.shape != xp.shape or res.dtype != xp.dtype or res.device != xp.device:
-        raise ValueError(f"residual_tail_d2s: res {tuple(res.shape)} {res.dtype} {res.device} "
-                         f"and xp {tuple(xp.shape)} {xp.dtype} {xp.device} differ")
+def _s2d_fake(x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    n, h, w, c = x.shape
+    return x.new_empty((n, h // 2, w // 2, 4 * c), dtype=out_dtype)
+
+
+s2d_convert_op = _build.custom_op(
+    "s2d_convert(Tensor x, ScalarType out_dtype) -> Tensor",
+    cpu=lambda x, out_dtype: _build.fresh(plain_s2d_convert(x, out_dtype), x),
+    cuda=_s2d_cuda, fake=_s2d_fake)
+
+
+def s2d_convert(x: torch.Tensor, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """x (N, H, W, C) contiguous float32 or bfloat16, H and W even ->
+    space_to_depth(x) in ``out_dtype`` (float32 or bfloat16)."""
+    _build.check_nhwc(x, "s2d_convert")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"s2d_convert: out_dtype {out_dtype} is not float32 or bfloat16")
+    n, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"s2d_convert: H and W must be even, got {h}x{w}")
+    if x.device.type == "cpu" and _build.needs_grad(x):
+        return plain_s2d_convert(x, out_dtype)  # the CPU gradient, as before the op
+    if x.device.type == "cuda":
+        _build.refuse_grad("s2d_convert", x)
+    return s2d_convert_op(x, out_dtype)
+
+
+def _d2s_cuda(res: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
+    """Kernel D's launch: the CUDA impl of ``uegan_torch::residual_tail_d2s``."""
     n, hp, wp, c4 = res.shape
-    if c4 % 4:
-        raise ValueError(f"residual_tail_d2s: packed channels {c4} are not a multiple of 4")
-    if res.device.type == "cpu":
-        return plain_residual_tail_d2s(res, xp)
-    _build.refuse_grad("residual_tail_d2s", res, xp)
     if res.numel() >= _INDEX_LIMIT:
         raise ValueError(f"residual_tail_d2s: shape {tuple(res.shape)} has 2^31 elements or more")
     lib = _build.load()
@@ -160,6 +167,39 @@ def residual_tail_d2s(res: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
     _build.check(lib, err, "residual_tail_d2s")
     residual_tail_d2s.launches += 1
     return out
+
+
+def _d2s_fake(res: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
+    n, hp, wp, c4 = res.shape
+    return res.new_empty((n, 2 * hp, 2 * wp, c4 // 4))
+
+
+residual_tail_d2s_op = _build.custom_op(
+    "residual_tail_d2s(Tensor res, Tensor xp) -> Tensor",
+    cpu=lambda res, xp: _build.fresh(plain_residual_tail_d2s(res, xp), res, xp),
+    cuda=_d2s_cuda, fake=_d2s_fake)
+
+
+def residual_tail_d2s(res: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
+    """res, xp (N, Hp, Wp, 4C), one dtype (float32 or bfloat16), each image
+    contiguous and the images a batch stride apart (a contiguous batch, or a
+    window of rows of each image of one, as the strip executor's exit reads
+    its slabs) -> depth_to_space(clip(res + xp, -1, 1)) (N, 2Hp, 2Wp, C),
+    contiguous, in that dtype; the add and clip run in f32, and NaN passes
+    through as torch.clamp lets it."""
+    _build.check_nhwc(res, "residual_tail_d2s", batch_stride=True)
+    _build.check_nhwc(xp, "residual_tail_d2s", batch_stride=True)
+    if res.shape != xp.shape or res.dtype != xp.dtype or res.device != xp.device:
+        raise ValueError(f"residual_tail_d2s: res {tuple(res.shape)} {res.dtype} {res.device} "
+                         f"and xp {tuple(xp.shape)} {xp.dtype} {xp.device} differ")
+    if res.shape[-1] % 4:
+        raise ValueError(f"residual_tail_d2s: packed channels {res.shape[-1]} are not a "
+                         "multiple of 4")
+    if res.device.type == "cpu" and _build.needs_grad(res, xp):
+        return plain_residual_tail_d2s(res, xp)  # the CPU gradient, as before the op
+    if res.device.type == "cuda":
+        _build.refuse_grad("residual_tail_d2s", res, xp)
+    return residual_tail_d2s_op(res, xp)
 
 
 s2d_convert.launches = 0

@@ -13,7 +13,8 @@ Endpoints:
 
 The generator is the default one (cd 32, ``Config``'s defaults: bfloat16,
 the packed forward, ``--quantized_inference`` for the int8 one), from a
-reference ``.pth`` (``--generator_ckpt``) or, without one, seeded as the
+reference ``.pth`` (``--generator_ckpt``; its EMA copy of G where it keeps
+one, ``Config.ema_eval``) or, without one, seeded as the
 Tester seeds it.  An orbax directory is refused at startup with the
 ``orbax_to_pth.py`` command that exports it.  The forward is
 ``infer/packed.py:make_fast_eval``, built after the load, between the u8
@@ -203,7 +204,8 @@ class _Models:
         g = Generator(conv_dim=cfg.g_conv_dim, norm_fun=cfg.g_norm_fun, act_fun=cfg.g_act_fun,
                       use_sn=cfg.g_use_sn, dtype=compute_dtype(cfg.compute_dtype))
         if self.generator_ckpt:
-            g.load_state_dict(generator_state(load_pth(self.generator_ckpt)))
+            # the EMA copy where the file keeps one (Config.ema_eval), as JAX serves
+            g.load_state_dict(generator_state(load_pth(self.generator_ckpt), ema=cfg.ema_eval))
         else:  # the Tester's seeded weights, as JAX serves its PRNGKey(0) init
             init_weights(g, cfg.init_type, 0.02, torch.Generator().manual_seed(cfg.seed))
         g = g.to(self.device).eval()

@@ -22,6 +22,7 @@ from uegan_tpu_torch.models.initializers import init_weights
 from uegan_tpu_torch.models.vgg import VGG19Features
 from uegan_tpu_torch.train.image_pool import ImagePool
 from uegan_tpu_torch.train.schedules import make_optimizer
+from uegan_tpu_torch.utils.checkpoint import EMA_KEY, save_pth
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -86,11 +87,26 @@ def create_train_state(config: Config, device, image_hw: Tuple[int, int], steps_
     return state
 
 
+def save_checkpoint(state: TrainState, path: str, epoch) -> str:
+    """The reference's seven-key ``.pth`` of ``state`` at ``path``, with the
+    EMA copy of G under ``utils/checkpoint.py:EMA_KEY`` when one is kept; the
+    lr schedulers' entries hold LambdaLR's state (the epoch and the base lrs)."""
+    cfg = state.config
+    last = int(state.step // state.steps_per_epoch)
+    return save_pth(path, state.g.state_dict(), state.d.state_dict(), epoch,
+                    state.g_opt.state_dict(), state.d_opt.state_dict(),
+                    {"last_epoch": last, "base_lrs": [cfg.g_lr]},
+                    {"last_epoch": last, "base_lrs": [cfg.d_lr]}, g_ema=state.g_ema)
+
+
 def load_checkpoint(state: TrainState, ckpt: Dict) -> None:
     """Resume ``state`` from a reference checkpoint dict (``utils/checkpoint.py:
     load_pth``): G's and D's weights (D's spectral-norm u/v with them) and,
-    where the dict has them, both optimizers' moments and step counts.  An
-    EMA copy starts again from the loaded weights: the dict keeps none."""
+    where the dict has them, both optimizers' moments and step counts.  A
+    state that keeps an EMA copy (``g_ema_decay > 0``) takes the dict's
+    (``EMA_KEY``), or starts it again from the loaded weights where the dict
+    has none; a state that keeps none drops the dict's, so a run resumed
+    with ``g_ema_decay=0`` never validates with a stale average."""
     state.g.load_state_dict({k: v for k, v in ckpt["G_net"].items()
                              if not k.endswith("num_batches_tracked")})
     state.d.load_state_dict({k: v for k, v in ckpt["D_net"].items()
@@ -99,7 +115,9 @@ def load_checkpoint(state: TrainState, ckpt: Dict) -> None:
         if ckpt.get(key):
             opt.load_state_dict(ckpt[key])
     if state.g_ema is not None:
-        state.g_ema = {k: v.detach().clone() for k, v in state.g.named_parameters()}
+        stored = ckpt.get(EMA_KEY) or {}
+        state.g_ema = {k: stored.get(k, p).detach().to(p.device, p.dtype).clone()
+                       for k, p in state.g.named_parameters()}
 
 
 def count_params(model: torch.nn.Module) -> int:

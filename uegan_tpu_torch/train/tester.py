@@ -1,6 +1,7 @@
 """Inference engine, counterpart of uegan_tpu/train/tester.py.
 
-Loads the epoch's reference ``.pth``, enhances the whole test set (at
+Loads the epoch's reference ``.pth`` (its EMA copy of G under
+``--ema_eval``, the default, where the file keeps one), enhances the whole test set (at
 native resolution under ``--test_keep_aspect``: each batch reflect-padded to
 a bucketed multiple of 16 and cropped back, infer/native.py), saves the
 outputs and side-by-side compare PNGs, then runs NIMA (``--is_test_nima``,
@@ -92,7 +93,8 @@ class Tester:
 
     def load_pretrained_model(self, resume_epochs) -> None:
         path = find_checkpoint(self.model_save_path, self.args, resume_epochs)
-        self.G.load_state_dict(generator_state(load_pth(path)))
+        # the EMA copy of G where the checkpoint keeps one, under --ema_eval
+        self.G.load_state_dict(generator_state(load_pth(path), ema=self.args.ema_eval))
         self._fast_fn = None  # re-pack from the loaded weights
         print(f"=========== loaded trained models (epochs: {resume_epochs})! ===========")
 

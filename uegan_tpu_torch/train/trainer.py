@@ -4,14 +4,15 @@ The epoch loop around ``train/step.py:make_train_step`` (reference flow
 trainer.py:39-146): the lr printed at each epoch's start, a loss line every
 ``info_step`` steps, sample panels (raw | fake | exp) every ``sample_step``
 steps, the reference's seven-key ``.pth`` every ``model_save_epoch``
-epochs, validation every ``val_each_epochs`` after ``num_epochs_start_val``
+epochs (with the EMA copy of G under ``g_ema_decay > 0``), validation every ``val_each_epochs`` after ``num_epochs_start_val``
 (the canonical eval forward; under ``on_device_metrics`` PSNR and SSIM of
 the output against the paired label on the device, printed; then NIMA and
 PSNR/SSIM over the saved PNGs in the reference's disk/CSV protocol, the
 authoritative numbers) with the best epochs written at the end.
 SIGTERM or SIGINT asks for a checkpoint at the next step and ends the loop;
 ``--pretrained_model E`` (or -1, the newest) resumes from epoch E's
-``.pth``: weights, spectral-norm vectors and optimizer moments, at step
+``.pth``: weights, spectral-norm vectors, optimizer moments and the EMA
+copy of G where both the run and the file keep one, at step
 E * steps_per_epoch.  The image pool starts empty on a resume, as the JAX
 package's ``.pth`` resume does.
 """
@@ -34,9 +35,10 @@ from uegan_tpu_torch.metrics.psnr import calc_psnr, psnr_batch
 from uegan_tpu_torch.metrics.ssim import calc_ssim, ssim_batch
 from uegan_tpu_torch.models.vgg import load_vgg_weights
 from uegan_tpu_torch.train.schedules import make_lr_schedule
-from uegan_tpu_torch.train.state import count_params, create_train_state, load_checkpoint
+from uegan_tpu_torch.train.state import (count_params, create_train_state, load_checkpoint,
+                                         save_checkpoint)
 from uegan_tpu_torch.train.step import make_train_step
-from uegan_tpu_torch.utils.checkpoint import ckpt_name, find_checkpoint, load_pth, save_pth
+from uegan_tpu_torch.utils.checkpoint import ckpt_name, find_checkpoint, load_pth
 from uegan_tpu_torch.utils.image_io import normalize_u8, quantize_u8, save_image, save_image_grid
 
 
@@ -292,14 +294,9 @@ class Trainer:
                             ckpt_name(self.args.version, self.args.adv_loss_type, epoch) + ".pth")
 
     def save_checkpoint(self, epoch) -> str:
-        """The reference's seven-key ``.pth``; the lr schedulers' entries hold
-        LambdaLR's state (the epoch and the base lrs)."""
-        s, args = self.state, self.args
-        last = int(s.step // self.train_steps_per_epoch)
-        return save_pth(self.ckpt_path(epoch), s.g.state_dict(), s.d.state_dict(), epoch,
-                        s.g_opt.state_dict(), s.d_opt.state_dict(),
-                        {"last_epoch": last, "base_lrs": [args.g_lr]},
-                        {"last_epoch": last, "base_lrs": [args.d_lr]})
+        """The reference's seven-key ``.pth``, with the EMA copy of G when one
+        is kept (train/state.py:save_checkpoint)."""
+        return save_checkpoint(self.state, self.ckpt_path(epoch), epoch)
 
     def latest_epoch(self) -> Optional[float]:
         prefix = f"{self.args.version}_{self.args.adv_loss_type}_"

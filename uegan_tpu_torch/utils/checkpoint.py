@@ -4,7 +4,12 @@ A reference checkpoint is a seven-key ``.pth`` dict {G_net, D_net, epoch,
 g_optimizer, d_optimizer, lr_scheduler_g, lr_scheduler_d} named
 ``{version}_{adv_loss_type}_{epoch}.pth`` (reference trainer.py:186-208).
 The port's trainer writes that dict (``save_pth``), which the port's Tester
-and the JAX Tester both read.  The JAX package writes orbax directories of
+and the JAX Tester both read, and under ``g_ema_decay > 0`` one key more,
+``G_ema`` (``EMA_KEY``): the EMA copy of G's parameters, by parameter name,
+which the port's Tester, server and exporter take under ``ema_eval`` and a
+resumed run restores.  JAX's ``.pth`` reader indexes only the keys it needs
+(uegan_tpu/convert/torch_import.py:import_uegan_checkpoint), so the extra
+key is harmless there.  The JAX package writes orbax directories of
 the same stem instead.  The port does not read those: ``orbax_to_pth.py``
 at the repository root exports one to the reference ``.pth`` (where flax is
 installed), and every refusal here names that command.  Where both forms of
@@ -14,7 +19,7 @@ one epoch exist the port refuses to pick one (``find_checkpoint``).
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -35,6 +40,7 @@ def orbax_refusal(orbax_dir: str, out: str, flag: str = "--ckpt") -> str:
             "(where flax is installed)")
 KEYS = ("G_net", "D_net", "epoch", "g_optimizer", "d_optimizer", "lr_scheduler_g",
         "lr_scheduler_d")
+EMA_KEY = "G_ema"
 
 
 def ckpt_name(version: str, adv_loss_type: str, epoch) -> str:
@@ -49,10 +55,15 @@ def load_pth(path: str) -> Dict:
     return ckpt
 
 
-def generator_state(ckpt: Dict) -> Dict[str, torch.Tensor]:
+def generator_state(ckpt: Dict, ema: bool = False) -> Dict[str, torch.Tensor]:
     """The ``G_net`` state dict, without the ``num_batches_tracked`` counters
-    of the reference's norm layers, which eval mode does not read."""
-    return {k: v for k, v in ckpt["G_net"].items() if not k.endswith("num_batches_tracked")}
+    of the reference's norm layers, which eval mode does not read; with
+    ``ema`` (``Config.ema_eval``) its parameters are the EMA copy where the
+    checkpoint keeps one, as JAX's Tester swaps in ``g_ema``."""
+    sd = {k: v for k, v in ckpt["G_net"].items() if not k.endswith("num_batches_tracked")}
+    if ema and ckpt.get(EMA_KEY):
+        sd.update(ckpt[EMA_KEY])
+    return sd
 
 
 def find_checkpoint(model_save_path: str, config: Config, epoch) -> str:
@@ -89,11 +100,15 @@ def _cpu(tree):
 
 
 def save_pth(path: str, g_state: Dict, d_state: Dict, epoch: float, g_optimizer: Dict,
-             d_optimizer: Dict, lr_scheduler_g: Dict, lr_scheduler_d: Dict) -> str:
+             d_optimizer: Dict, lr_scheduler_g: Dict, lr_scheduler_d: Dict,
+             g_ema: Optional[Dict] = None) -> str:
     """Write the reference's seven-key dict to ``path`` (tensors on the CPU),
-    through a temporary file, so that a reader never sees half a checkpoint."""
+    with ``EMA_KEY`` for ``g_ema`` when one is given, through a temporary
+    file, so that a reader never sees half a checkpoint."""
     ckpt = dict(zip(KEYS, (g_state, d_state, float(epoch), g_optimizer, d_optimizer,
                            lr_scheduler_g, lr_scheduler_d)))
+    if g_ema is not None:
+        ckpt[EMA_KEY] = g_ema
     tmp = path + ".tmp"
     torch.save(_cpu(ckpt), tmp)
     os.replace(tmp, path)
