@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from uegan_tpu_torch/csrc/ (one nvcc
-a source, started together) and runs twelve phases, each of which ends the
+a source, started together) and runs thirteen phases, each of which ends the
 run with a non-zero exit on failure:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
@@ -17,8 +17,9 @@ run with a non-zero exit on failure:
    names no tensor-core kernel of E or F, or no kernel of A, A', B' or C;
 3. kernels vs plain: gam_stats (A) and upsample2x (B) against their plain
    PyTorch versions run in float64 and rounded, at the shapes the 512 px
-   canonical forward gives them (batch 4), in float32 and bfloat16, and at
-   ragged shapes; A also at one pixel with C = 3, 5, 12 (narrow words), 32
+   canonical forward gives them (batch 4) and the 256 px train steps' (20
+   images a forward fused, 10 under spectral norm), in float32 and
+   bfloat16, and at ragged shapes; A also at one pixel with C = 3, 5, 12 (narrow words), 32
    and 512 (16-byte words), at batch 1 and 512 px, and on an input one
    element past a 16-byte boundary, each called twice for identical bits.
    Tolerance: float32 |d| <= 1e-5 + 1e-5 |ref|; bfloat16 |d| <= max(one
@@ -43,7 +44,8 @@ run with a non-zero exit on failure:
    case, ragged ones and the same tile edges, with A's and B's tolerances.
    The backward kernels gam_stats_bwd (A') and upsample2x_bwd (B') against
    their plain versions run in float64, at every shape the 256 px train step
-   (batch 10, 20 images through G) gives them and at the edges of their
+   (batch 10, 20 images through G; 10 a forward under spectral norm) gives
+   them and at the edges of their
    tiles (GAM_BWD_EDGES, UP_BWD_EDGES: one pixel, constant channels, H or W
    of one, H and W not a multiple of the tile, C = 3, 6, 12 and 520, an
    input one element past 16 bytes, more tiles than a wave, and B' on a
@@ -90,6 +92,19 @@ run with a non-zero exit on failure:
    bf16 steps finite with both nets moved; one step's launches A 5, B 4,
    A' 5, B' 4; step time and images/s with kernels and with plain versions,
    peak memory, and the step's device time by bucket under torch.profiler;
+6b. sn: spectral norm in the generator (``--g_use_sn true``) at the same
+   width, whose train step is the unfused one (G(raw), the D update, then
+   G(exp): G's u and v advance twice a step): ``--mode train --g_use_sn
+   true`` through uegan_tpu_torch.cli.run on 20 synthetic pairs (2 steps
+   and a validation batch, NIMA off), then ``--mode test --g_use_sn true``
+   on the .pth it wrote and on one of seeded weights (u and v at the
+   leading singular vectors): the canonical route, A 5 and B 4 a forward,
+   C and D 0, PNGs >= 35 dB from the f32 plain canonical forward; 2 f32
+   steps, kernels vs plain, with phase 6's limits and G's u and v within
+   1e-5; one bf16 step's launches A 10, B 8, A' 10, B' 8, C-F 0; ms per
+   bf16 step with the kernels and the plain versions beside the fused
+   default step, in turns, the peak device memory of an SN step, and its
+   device time by bucket under torch.profiler;
 7. timing: images/s of the canonical and the packed forward at 512 px,
    batch 8, bfloat16, with kernels and with plain versions, and of the int8
    and int8_pallas forwards beside the packed one; each kernel's time beside
@@ -679,6 +694,11 @@ def phase_kernels(dev) -> dict:
     cases = [("gam_stats", (4, h, h, c)) for h, c in GAM_SHAPES]
     cases += [("upsample2x", (4, h, h, c)) for h, c in UP_SHAPES]
     cases += [("upsample2x", shape) for shape in HR_UP_SHAPES]
+    # the train steps': 20 images through G (fused), 10 a forward (spectral norm)
+    cases += [("gam_stats", (b, h, h, c)) for b in (TRAIN_B2, TRAIN_B)
+              for h, c in TRAIN_GAM_SHAPES]
+    cases += [("upsample2x", (b, h, h, c)) for b in (TRAIN_B2, TRAIN_B)
+              for h, c in TRAIN_UP_SHAPES]
     cases += [(k, s) for s in RAGGED for k in ("gam_stats", "upsample2x")]
     cases += [("gam_stats", s) for s in GAM_EXTRA]
     cases += [("gam_stats misaligned", (4, 64, 64, 32))]
@@ -914,7 +934,7 @@ def phase_backward_kernels(dev) -> dict:
     worst = {"gam_stats_bwd": 0.0, "upsample2x_bwd": 0.0}
     randn = lambda shape: torch.randn(shape, generator=gen, device=dev)
     # (shape, a constant channel, which input lies one element past 16 bytes)
-    for shape, const, shifted in [((TRAIN_B2, h, h, c), False, None)
+    for shape, const, shifted in [((b, h, h, c), False, None) for b in (TRAIN_B2, TRAIN_B)
                                   for h, c in TRAIN_GAM_SHAPES] + GAM_BWD_EDGES:
         n, _, _, c = shape
         for dtype in (f32, bf16):
@@ -949,7 +969,7 @@ def phase_backward_kernels(dev) -> dict:
                 worst["gam_stats_bwd"] = max(worst["gam_stats_bwd"], err)
     # (dx shape, dy one element past 16 bytes, the plan's wave where not one
     # of the card's)
-    for (n, h, w, c), shifted, wave in [((TRAIN_B2, h, h, c), False, None)
+    for (n, h, w, c), shifted, wave in [((b, h, h, c), False, None) for b in (TRAIN_B2, TRAIN_B)
                                         for h, c in TRAIN_UP_SHAPES] + UP_BWD_EDGES:
         for dtype in (f32, bf16):
             dy = randn((n, 2 * h, 2 * w, c)).to(dtype)
@@ -1337,18 +1357,39 @@ def train_config(dtype: str, **kw):
                   resize_size=TRAIN_HW, train_batch_size=TRAIN_B, compute_dtype=dtype, **kw)
 
 
-def seeded_train_state(dtype: str, dev):
-    """The train state at full width (cd 32, dd 32, VGG19 to relu5_1) with
-    N(0, 1/fan_in) weights from the seed, as phase 4's generator has."""
+def converged_uv(sd: dict) -> dict:
+    """``sd`` with each spectral-norm u and v set to its kernel's leading
+    singular vectors: the fixed point where a trained run's power iterations
+    sit.  Random unit vectors instead make eval-mode sigmas far below the
+    top singular value, which scales the activations up layer by layer."""
+    import torch
+
+    for k in [k for k in sd if k.endswith(".weight_orig")]:
+        w = sd[k]
+        left, _, right = torch.linalg.svd(w.double().reshape(w.shape[0], -1).cpu(),
+                                          full_matrices=False)
+        stem = k[:-len("orig")]
+        sd[stem + "u"] = left[:, 0].float().contiguous().to(w.device)
+        sd[stem + "v"] = right[0].float().contiguous().to(w.device)
+    return sd
+
+
+def seeded_train_state(dtype: str, dev, **kw):
+    """The train state at full width (cd 32, dd 32, VGG19 to relu5_1; other
+    config fields from ``kw``) with N(0, 1/fan_in) weights from the seed, as
+    phase 4's generator has; D's spectral-norm u and v random unit vectors,
+    G's (under ``g_use_sn``) at their fixed point (``converged_uv``)."""
     import torch
 
     from uegan_tpu_torch.models.initializers import fan_in_normal_state
     from uegan_tpu_torch.train.state import create_train_state
 
-    state = create_train_state(train_config(dtype), dev, (TRAIN_HW, TRAIN_HW), 1000)
+    state = create_train_state(train_config(dtype, **kw), dev, (TRAIN_HW, TRAIN_HW), 1000)
     for i, m in enumerate((state.g, state.d, state.vgg)):
-        sd = fan_in_normal_state(m, SEED + i)
-        m.load_state_dict({k: torch.from_numpy(v).to(dev) for k, v in sd.items()})
+        sd = {k: torch.from_numpy(v) for k, v in fan_in_normal_state(m, SEED + i).items()}
+        if m is state.g:
+            sd = converged_uv(sd)
+        m.load_state_dict({k: v.to(dev) for k, v in sd.items()})
     return state
 
 
@@ -1374,6 +1415,113 @@ def train_step_ms(step, batches: list, k: int = 5) -> float:
         step(*batches[i % len(batches)])
     torch.cuda.synchronize()
     return (time.perf_counter() - t) / k * 1e3
+
+
+def steps_kernels_vs_plain(dev, phase: str, **kw) -> None:
+    """2 train steps from one seeded state (``train_config`` with ``kw``)
+    with the kernels and with the plain versions, in float32 with TF32 off
+    and cuDNN's deterministic algorithms (its weight gradients otherwise add
+    in a run-to-run order): losses within rel 1e-4; parameters within 1e-4
+    but for at most 1e-3 of them (where Adam's normalized first steps divide
+    a gradient that nearly cancels), by at most the two steps' 4 lr; G's
+    spectral-norm u and v, where it has them, within 1e-5 after step 1
+    and, after step 2, within 1e-5 + 4 ||dW||_F / sigma of their kernel's
+    differences after step 1.  Step 1's gradients against each other are
+    printed."""
+    import torch
+
+    from uegan_tpu_torch.train.step import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    batches = train_batches(dev, 2)
+    runs = {}
+    for which in ("kernels", "plain"):
+        state = seeded_train_state("float32", dev, **kw)
+        step = make_train_step(state)
+        named = [(k, p) for m in (state.g, state.d) for k, p in m.named_parameters()]
+        grad_least = {k: torch.full_like(p, math.inf) for k, p in named}
+        losses, first, sn = [], None, []
+        with plain_versions() if which == "plain" else contextlib.nullcontext():
+            for b in batches:
+                losses.append({k: float(v) for k, v in step(*b)[0].items()})
+                first = first or {k: p.grad.clone() for k, p in named}
+                for k, p in named:  # the step's gradient with its decay term
+                    g = (p.grad + state.config.weight_decay * p.detach()).abs()
+                    torch.minimum(grad_least[k], g, out=grad_least[k])
+                sn.append({k: t.clone() for k, t in state.g.state_dict().items()
+                           if k.endswith(("weight_orig", "weight_u", "weight_v"))})
+        runs[which] = (losses, {k: p.detach().clone() for k, p in named}, grad_least, first, sn)
+        del step, state
+    torch.backends.cudnn.deterministic = False
+    worst_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                    for a, b in zip(runs["kernels"][0], runs["plain"][0]) for k in a)
+    # step 1's gradients, before Adam normalizes them, printed: per tensor the
+    # largest difference against the largest gradient, and all of them in L2.
+    # The GAMs' squeeze and excite weights and fuse biases feed only
+    # spatially constant terms, which the instance norm after the fuse
+    # removes, so their gradients are rounding noise (under 1e-5 of the
+    # model's largest): listed, not compared.  The hinge losses' masks flip
+    # where a prediction lies within rounding of a hinge, which moves whole
+    # pixels' gradients, so no tolerance is set on these
+    first_k, first_p = runs["kernels"][3], runs["plain"][3]
+    top = max(float(g.abs().max()) for g in first_p.values())
+    dead = [k for k, g in first_p.items() if float(g.abs().max()) < 1e-5 * top]
+    grad_rel, grad_worst = max((float((first_k[k] - g).abs().max()) / float(g.abs().max()), k)
+                               for k, g in first_p.items() if k not in dead)
+    grad_l2 = math.sqrt(sum(float(((first_k[k] - g) ** 2).sum()) for k, g in first_p.items())
+                        / sum(float((g ** 2).sum()) for g in first_p.values()))
+    pk, pp, gk = runs["kernels"][1], runs["plain"][1], runs["kernels"][2]
+    diffs = torch.cat([(pk[k] - pp[k]).abs().flatten() for k in pk])
+    grads = torch.cat([gk[k].flatten() for k in pk])
+    off = diffs > 1e-4
+    n_off, n_off_steady = int(off.sum()), int((off & (grads >= 1e-6)).sum())
+    by_name = sorted(((int(((pk[k] - pp[k]).abs() > 1e-4).sum()), k) for k in pk), reverse=True)
+    cfg = train_config("float32", **kw)
+    # G's spectral-norm u and v: after step 1 both runs iterate from the same
+    # weights, so within 1e-5; step 2 iterates from step 1's weights, which
+    # differ where Adam divides a nearly cancelling gradient (the rule
+    # above), so there each vector may differ as far as two power iterations
+    # carry those differences: 1e-5 + 4 ||dW||_F / sigma
+    sk, sp = runs["kernels"][4], runs["plain"][4]
+    uv_keys = [k for k in sk[0] if not k.endswith("weight_orig")]
+    uv1 = max((float((sk[0][k] - sp[0][k]).abs().max()) for k in uv_keys), default=0.0)
+    uv2 = []  # (share of its limit, max abs, limit, key)
+    for k in uv_keys:
+        stem = k.rsplit(".", 1)[0]
+        w = sp[0][stem + ".weight_orig"]
+        sigma = float(sp[0][stem + ".weight_u"] @ w.reshape(w.shape[0], -1)
+                      @ sp[0][stem + ".weight_v"])
+        lim = 1e-5 + 4 * float((sk[0][stem + ".weight_orig"] - w).norm()) / sigma
+        d = float((sk[1][k] - sp[1][k]).abs().max())
+        uv2.append((d / lim, d, lim, k))
+    uv2.sort(reverse=True)
+    log(phase, f"2 steps f32 (TF32 off, deterministic cuDNN), kernels vs plain: losses "
+               f"{runs['kernels'][0]} vs {runs['plain'][0]}, max rel {worst_rel:.3e} (limit "
+               f"1e-4); step 1's gradients: relative L2 {grad_l2:.3e}, per tensor at most "
+               f"{grad_rel:.3e} of its largest ({grad_worst}), {len(dead)} tensors whose "
+               f"gradients are under 1e-5 of the largest not compared {dead}; "
+               f"parameters max abs {float(diffs.max()):.3e}, {n_off} of "
+               f"{diffs.numel()} over 1e-4, of which {n_off_steady} had a gradient of 1e-6 "
+               f"or more at both steps; most in {[x for x in by_name[:5] if x[0]]}; median "
+               f"smaller |gradient| of the two steps of those over 1e-4: "
+               f"{float(grads[off].median()) if n_off else 0.0:.3e}")
+    if uv_keys:
+        moved = sum(1 for k in uv_keys if k.endswith("weight_u") and not torch.equal(
+            sk[0][k[:-1] + "orig"], sp[0][k[:-1] + "orig"]))
+        log(phase, f"G's spectral-norm u and v, kernels vs plain, {len(uv_keys)} vectors: after "
+                   f"step 1 max abs {uv1:.3e} (limit 1e-5); after step 2 max abs "
+                   f"{max(x[1] for x in uv2):.3e}, {moved} of {len(uv_keys) // 2} kernels "
+                   f"differing after step 1; the nearest their limits (share, max abs, limit): "
+                   f"{[(round(r, 3), f'{d:.3e}', f'{lim:.3e}', k) for r, d, lim, k in uv2[:4]]}")
+    if (worst_rel > 1e-4 or float(diffs.max()) > 4 * max(cfg.g_lr, cfg.d_lr)
+            or n_off > 1e-3 * diffs.numel() or uv1 > 1e-5 or (uv2 and uv2[0][0] > 1)):
+        raise AssertionError(f"{phase}: the train step with the kernels disagrees with the "
+                             "plain versions")
+    del runs, diffs, grads
+    torch.backends.cudnn.allow_tf32 = True
+
 
 
 def phase_train(dev, card: str, tmp: str) -> dict:
@@ -1457,69 +1605,7 @@ def phase_train(dev, card: str, tmp: str) -> dict:
     log("6 train", f"--mode test on {os.path.basename(pth)}: {res['n_images']} PNGs, PSNR "
                    f"{res['psnr']:.4f} dB, SSIM {res['ssim']:.4f}, NIMA {res['nima']:.4f}")
 
-    # kernels against plain versions, 2 steps from one state, float32, with
-    # TF32 off and cuDNN's deterministic algorithms (its weight gradients
-    # otherwise add in a run-to-run order)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    batches = train_batches(dev, 2)
-    runs = {}
-    for which in ("kernels", "plain"):
-        state = seeded_train_state("float32", dev)
-        step = make_train_step(state)
-        named = [(k, p) for m in (state.g, state.d) for k, p in m.named_parameters()]
-        grad_least = {k: torch.full_like(p, math.inf) for k, p in named}
-        losses, first = [], None
-        with plain_versions() if which == "plain" else contextlib.nullcontext():
-            for b in batches:
-                losses.append({k: float(v) for k, v in step(*b)[0].items()})
-                first = first or {k: p.grad.clone() for k, p in named}
-                for k, p in named:  # the step's gradient with its decay term
-                    g = (p.grad + state.config.weight_decay * p.detach()).abs()
-                    torch.minimum(grad_least[k], g, out=grad_least[k])
-        runs[which] = (losses, {k: p.detach().clone() for k, p in named}, grad_least, first)
-        del step, state
-    torch.backends.cudnn.deterministic = False
-    worst_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
-                    for a, b in zip(runs["kernels"][0], runs["plain"][0]) for k in a)
-    # step 1's gradients, before Adam normalizes them, printed: per tensor the
-    # largest difference against the largest gradient, and all of them in L2.
-    # The GAMs' squeeze and excite weights and fuse biases feed only
-    # spatially constant terms, which the instance norm after the fuse
-    # removes, so their gradients are rounding noise (under 1e-5 of the
-    # model's largest): listed, not compared.  The hinge losses' masks flip
-    # where a prediction lies within rounding of a hinge, which moves whole
-    # pixels' gradients, so no tolerance is set on these
-    first_k, first_p = runs["kernels"][3], runs["plain"][3]
-    top = max(float(g.abs().max()) for g in first_p.values())
-    dead = [k for k, g in first_p.items() if float(g.abs().max()) < 1e-5 * top]
-    grad_rel, grad_worst = max((float((first_k[k] - g).abs().max()) / float(g.abs().max()), k)
-                               for k, g in first_p.items() if k not in dead)
-    grad_l2 = math.sqrt(sum(float(((first_k[k] - g) ** 2).sum()) for k, g in first_p.items())
-                        / sum(float((g ** 2).sum()) for g in first_p.values()))
-    pk, pp, gk = runs["kernels"][1], runs["plain"][1], runs["kernels"][2]
-    diffs = torch.cat([(pk[k] - pp[k]).abs().flatten() for k in pk])
-    grads = torch.cat([gk[k].flatten() for k in pk])
-    off = diffs > 1e-4
-    n_off, n_off_steady = int(off.sum()), int((off & (grads >= 1e-6)).sum())
-    by_name = sorted(((int(((pk[k] - pp[k]).abs() > 1e-4).sum()), k) for k in pk), reverse=True)
-    cfg = train_config("float32")
-    log("6 train", f"2 steps f32 (TF32 off, deterministic cuDNN), kernels vs plain: losses "
-                   f"{runs['kernels'][0]} vs {runs['plain'][0]}, max rel {worst_rel:.3e} (limit "
-                   f"1e-4); step 1's gradients: relative L2 {grad_l2:.3e}, per tensor at most "
-                   f"{grad_rel:.3e} of its largest ({grad_worst}), {len(dead)} tensors whose "
-                   f"gradients are under 1e-5 of the largest not compared {dead}; "
-                   f"parameters max abs {float(diffs.max()):.3e}, {n_off} of "
-                   f"{diffs.numel()} over 1e-4, of which {n_off_steady} had a gradient of 1e-6 "
-                   f"or more at both steps; most in {[x for x in by_name[:5] if x[0]]}; median "
-                   f"smaller |gradient| of the two steps of those over 1e-4: "
-                   f"{float(grads[off].median()) if n_off else 0.0:.3e}")
-    if (worst_rel > 1e-4 or float(diffs.max()) > 4 * max(cfg.g_lr, cfg.d_lr)
-            or n_off > 1e-3 * diffs.numel()):
-        raise AssertionError("the train step with the kernels disagrees with the plain versions")
-    del runs, diffs, grads
-    torch.backends.cudnn.allow_tf32 = True
+    steps_kernels_vs_plain(dev, "6 train")
 
     # bf16: finite, both nets moved; one step's launches
     state = seeded_train_state("bfloat16", dev)
@@ -1562,6 +1648,167 @@ def phase_train(dev, card: str, tmp: str) -> dict:
     for k, (b_ms, n) in sorted(r["buckets"].items(), key=lambda kv: -kv[1][0]):
         log("6 train", f"| {k} | {b_ms:.3f} | {n:g} | {b_ms / r['busy_ms']:.1%} |")
     return {"launches": cli_counts, "ms": ms, "peak_gib": peak, "profile": r}
+
+
+def phase_sn(dev, card: str, tmp: str) -> dict:
+    """Spectral norm in the generator (``--g_use_sn true``) at the default
+    width (cd 32, dd 32, 256 px crops of 512, B=10).  Its train step is the
+    unfused one: G(raw), the D update, then G(exp), so G's u and v advance
+    twice a step and A, B, A' and B' run at B=10 twice a step.
+
+    - ``--mode train --g_use_sn true`` through uegan_tpu_torch.cli.run on a
+      synthetic FiveK layout of 20 pairs (2 steps and a validation batch,
+      bf16, NIMA off), launches counted; then ``--mode test --g_use_sn
+      true`` on the .pth it wrote and on one of seeded N(0, 1/fan_in)
+      weights: the canonical route (A 5, B 4, C and D 0 each), PNGs >= 35 dB
+      from the f32 plain canonical forward of the same weights;
+    - 2 f32 steps from one seeded SN state with the kernels and with the
+      plain versions (steps_kernels_vs_plain: phase 6's limits, and G's u
+      and v within 1e-5);
+    - one bf16 step's launches: A 10, B 8, A' 10, B' 8, C-F 0;
+    - ms per bf16 step with the kernels and with the plain versions, beside
+      the fused default step, in turns; the peak device memory of a step;
+      the step's device time by bucket under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from uegan_tpu_torch import cli
+    from uegan_tpu_torch.models.generator import Generator
+    from uegan_tpu_torch.models.initializers import fan_in_normal_state
+    from uegan_tpu_torch.train.step import make_train_step
+    from uegan_tpu_torch.utils.checkpoint import generator_state, load_pth
+    from uegan_tpu_torch.utils.image_io import normalize_u8, quantize_u8, read_png_rgb
+
+    t_phase = time.time()
+    zero = dict.fromkeys(KERNELS, 0)
+    per_forward = {**zero, "gam_stats": 5, "upsample2x": 4}
+    per_step = {**zero, "gam_stats": 10, "upsample2x": 8, "gam_stats_bwd": 10,
+                "upsample2x_bwd": 8}
+    rng = np.random.default_rng(SEED + 20)
+    data = os.path.join(tmp, "fivek_sn")
+    write_pairs(os.path.join(data, "train"), ("exp", "raw"), 2 * TRAIN_B,
+                (2 * TRAIN_HW + 32, 2 * TRAIN_HW + 64), rng)
+    for part in ("val", "test"):
+        write_pairs(os.path.join(data, part), ("label", "raw"), 2, (IMG, IMG), rng)
+    root = os.path.join(tmp, "results_sn")
+    common = ["--save_root_dir", root, "--g_conv_dim", str(CD), "--d_conv_dim", str(CD),
+              "--g_use_sn", "true", "--test_img_size", str(IMG), "--val_batch_size", "2",
+              "--is_test_nima", "false", "--is_test_psnr_ssim", "true",
+              "--compute_dtype", "bfloat16", "--num_workers", "8"]
+    reset_counts()
+    res = cli.run(["--mode", "train", "--train_img_dir", os.path.join(data, "train"),
+                   "--val_img_dir", os.path.join(data, "val"),
+                   "--val_label_dir", os.path.join(data, "val", "label") + os.sep,
+                   "--image_size", str(2 * TRAIN_HW), "--resize_size", str(TRAIN_HW),
+                   "--train_batch_size", str(TRAIN_B), "--pool_size", "50",
+                   "--total_epochs", "1", "--num_epochs_start_val", "0",
+                   "--val_each_epochs", "1", "--info_step", "1", "--sample_step", "2"] + common)
+    torch.cuda.synchronize()
+    train_counts = counts()
+    want = {k: 2 * v + per_forward[k] for k, v in per_step.items()}  # + the validation batch
+    check_counts("--mode train --g_use_sn true (2 steps and one validation batch)",
+                 train_counts, want)
+    pth = os.path.join(root, "UEGAN-FiveK", "models", "UEGAN-FiveK_rahinge_1.pth")
+    ckpt = load_pth(pth)
+    losses = res["last_losses"]
+    if (res["steps"] != 2 or "ga1.fuse.0.weight_u" not in ckpt["G_net"]
+            or not all(math.isfinite(v) for v in losses.values())):
+        raise AssertionError(f"--mode train --g_use_sn true: {res}, G_net {sorted(ckpt['G_net'])}")
+    log("6b sn", f"python -m uegan_tpu_torch --mode train --g_use_sn true, cd {CD} dd {CD}, "
+                 f"{TRAIN_HW} px crops, B={TRAIN_B}, bf16, 20 pairs: 2 steps with validation, "
+                 f"last losses {losses}; launches {train_counts}; wrote {os.path.basename(pth)} "
+                 f"(G_net with weight_orig, weight_u, weight_v)")
+
+    # --mode test on the trainer's .pth (epoch 1; its residual is small, as
+    # the 0.02 orthogonal init leaves the unnormalized dec5 head), and on a
+    # reference-format .pth of N(0, 1/fan_in) weights (epoch 2), whose
+    # residual is of order one, with u and v at their fixed point
+    seeded = converged_uv({k: torch.from_numpy(v) for k, v in fan_in_normal_state(
+        Generator(conv_dim=CD, use_sn=True), SEED + 21).items()})
+    models = os.path.dirname(pth)
+    torch.save({"G_net": seeded,
+                "D_net": {}, "epoch": 2.0, "g_optimizer": {}, "d_optimizer": {},
+                "lr_scheduler_g": {}, "lr_scheduler_d": {}},
+               os.path.join(models, "UEGAN-FiveK_rahinge_2.pth"))
+    test_dir = os.path.join(data, "test")
+    out_dir = os.path.join(root, "UEGAN-FiveK", "test", "test_results")
+    names = sorted(n[:-len(".png")] for n in os.listdir(os.path.join(test_dir, "raw")))
+    raw = np.stack([read_png_rgb(os.path.join(test_dir, "raw", n + ".png")) for n in names])
+    test_counts = dict.fromkeys(KERNELS, 0)
+    for epoch in (1, 2):
+        reset_counts()
+        res = cli.run(["--mode", "test", "--test_img_dir", test_dir, "--test_label_dir",
+                       os.path.join(test_dir, "label") + os.sep, "--pretrained_model",
+                       str(epoch)] + common)
+        torch.cuda.synchronize()
+        launched = counts()
+        check_counts(f"--mode test --g_use_sn true, epoch {epoch} (one batch: the canonical "
+                     "route)", launched, per_forward)
+        test_counts = {k: v + launched[k] for k, v in test_counts.items()}
+        got = np.stack([read_png_rgb(os.path.join(out_dir, f"{n}_{epoch}.00_testFakeExp.png"))
+                        for n in names])
+        g32 = Generator(conv_dim=CD, use_sn=True)
+        g32.load_state_dict(generator_state(load_pth(os.path.join(
+            models, f"UEGAN-FiveK_rahinge_{epoch}.pth")), ema=True))
+        g32 = g32.to(dev).eval()
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.inference_mode(), plain_versions():
+            ref = quantize_u8(g32(normalize_u8(torch.from_numpy(raw).to(dev)))).cpu().numpy()
+        torch.backends.cudnn.allow_tf32 = True
+        diff = np.abs(got.astype(np.float64) - ref)
+        psnr = 10 * math.log10(255.0 ** 2 / max(float((diff ** 2).mean()), 1e-12))
+        moved = float(np.abs(ref.astype(np.float64) - raw).mean())
+        what = "the trainer's" if epoch == 1 else "seeded N(0, 1/fan_in)"
+        log("6b sn", f"--mode test --g_use_sn true on {what} UEGAN-FiveK_rahinge_{epoch}.pth: "
+                     f"{res['n_images']} PNGs {IMG}x{IMG}, PSNR {res['psnr']:.4f} dB vs labels; "
+                     f"launches {launched}; vs the f32 plain canonical forward: PSNR "
+                     f"{psnr:.2f} dB (limit >= 35), max |du8| {int(diff.max())}; mean "
+                     f"|output - input| {moved:.2f} gray levels")
+        if psnr < 35.0 or res["n_images"] != 2:
+            raise AssertionError(f"--mode test --g_use_sn true, epoch {epoch}: {psnr:.2f} dB, "
+                                 f"{res}")
+
+    steps_kernels_vs_plain(dev, "6b sn", g_use_sn=True)
+
+    state = seeded_train_state("bfloat16", dev, g_use_sn=True)
+    step = make_train_step(state)
+    batches = train_batches(dev, 3)
+    for b in batches[:2]:
+        step(*b)
+    reset_counts()
+    step(*batches[2])
+    torch.cuda.synchronize()
+    check_counts("one bf16 train step with --g_use_sn true", counts(), per_step)
+    fused_state = seeded_train_state("bfloat16", dev)
+    steps = {"sn": step, "fused": make_train_step(fused_state)}
+    times = {"sn kernels": [], "sn plain": [], "fused kernels": []}
+    for which in ("sn kernels", "fused kernels", "sn plain", "sn plain", "fused kernels",
+                  "sn kernels"):
+        with plain_versions() if "plain" in which else contextlib.nullcontext():
+            times[which].append(train_step_ms(steps[which.split()[0]], batches))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    del steps, fused_state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step(*batches[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for k in ("sn kernels", "sn plain", "fused kernels"):
+        log("6b sn", f"train step {TRAIN_HW}px B={TRAIN_B} bf16, {k}: {ms[k]:.3f} ms/step, "
+                     f"{TRAIN_B * 1000 / ms[k]:.2f} img/s (runs {times[k]}) [{card}]")
+    log("6b sn", f"launches a bf16 step {per_step}; peak device memory of an SN step: "
+                 f"{peak:.3f} GiB [{card}]")
+    r = profile(lambda: step(*batches[0]), iters=5, warmup=2)
+    n_kernels = sum(n for _, n in r["buckets"].values())
+    log("6b sn", f"SN train step under torch.profiler: wall {r['wall_ms']:.3f} ms per step, "
+                 f"device busy {r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
+                 f"{n_kernels:g} kernels a step [{card}]")
+    log("6b sn", "| bucket | ms per step | kernels per step | share of busy |")
+    for k, (b_ms, n) in sorted(r["buckets"].items(), key=lambda kv: -kv[1][0]):
+        log("6b sn", f"| {k} | {b_ms:.3f} | {n:g} | {b_ms / r['busy_ms']:.1%} |")
+    log("6b sn", f"phase {time.time() - t_phase:.1f} s")
+    del step, state
+    return {"sn_train": train_counts, "sn_test": test_counts}
 
 
 def phase_timing(dev, card: str) -> dict:
@@ -2968,6 +3215,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="uegan_smoke_") as tmp:
         launches = phase_end_to_end(dev, tmp)
         launches["train"] = phase_train(dev, card, tmp)["launches"]
+        launches.update(phase_sn(dev, card, tmp))
     timing = phase_timing(dev, card)
     phase_profile(dev, card)
     with tempfile.TemporaryDirectory(prefix="uegan_smoke_nima_") as tmp:

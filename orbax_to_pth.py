@@ -19,9 +19,11 @@ LambdaLR's state.  ``--weights eval`` (the default) makes ``G_net`` the EMA
 copy when the checkpoint has one and the run's ``ema_eval`` is on, the
 weights the JAX Tester and server enhance with, and leaves the optimizers
 empty; ``--weights live`` writes the live weights with both optimizers'
-Adam moments, which is what a resumed run needs.  ``--nima`` writes the
-reference NIMA state dict, which the port's ``metrics/nima.py:init_nima``
-and JAX's ``convert/torch_import.py:import_nima`` both read.
+Adam moments and, where the run keeps one (``g_ema_decay > 0``), the EMA
+copy of G as the port's ``G_ema`` key, which is what a resumed run needs.
+``--nima`` writes the reference NIMA state dict, which the port's
+``metrics/nima.py:init_nima`` and JAX's ``convert/torch_import.py:
+import_nima`` both read.
 
 ``--out`` is a ``.pth`` path, or a directory that takes ``{dir name}.pth``.
 The ``.pth`` may not sit beside its own orbax directory: there the JAX
@@ -109,19 +111,27 @@ def export_checkpoint(ckpt: str, out: str, weights: str = "eval") -> str:
     d_sd = discriminator_state_dict({"params": state.d_params, **state.d_extra})
 
     g_opt = d_opt = {}
+    g_ema = None
     if weights == "live":
         g = Generator(conv_dim=cfg.g_conv_dim, norm_fun=cfg.g_norm_fun, act_fun=cfg.g_act_fun,
                       use_sn=cfg.g_use_sn, device="meta")
         d = Discriminator(conv_dim=cfg.d_conv_dim, norm_fun=cfg.d_norm_fun,
                           act_fun=cfg.d_act_fun, use_sn=cfg.d_use_sn,
                           adv_loss_type=cfg.adv_loss_type, device="meta")
+        g_names = [n for n, _ in g.named_parameters()]
+        if state.g_ema is not None and cfg.g_ema_decay > 0:
+            # the average a resumed run goes on with, by parameter name as
+            # the port keeps it (an SN kernel's weight_orig; u and v stay
+            # the live ones in G_net, as JAX applies g_ema with g_extra)
+            ema = generator_state_dict({"params": state.g_ema, **state.g_extra})
+            g_ema = {n: ema[n] for n in g_names}
         betas = (cfg.beta1, cfg.beta2)
         # index 1 of the chain (add_decayed_weights, scale_by_adam, schedule)
         g_adam, d_adam = state.g_opt[1], state.d_opt[1]
         g_opt = adam_state_dict(
             g_adam.count, g_adam.mu, g_adam.nu,
             lambda t: generator_state_dict({"params": t, **state.g_extra}),
-            [n for n, _ in g.named_parameters()], cfg.g_lr, betas, cfg.weight_decay)
+            g_names, cfg.g_lr, betas, cfg.weight_decay)
         d_opt = adam_state_dict(
             d_adam.count, d_adam.mu, d_adam.nu,
             lambda t: discriminator_state_dict({"params": t, **state.d_extra}),
@@ -134,7 +144,7 @@ def export_checkpoint(ckpt: str, out: str, weights: str = "eval") -> str:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     return save_pth(path, g_sd, d_sd, epoch, g_opt, d_opt,
                     {"last_epoch": last, "base_lrs": [cfg.g_lr]},
-                    {"last_epoch": last, "base_lrs": [cfg.d_lr]})
+                    {"last_epoch": last, "base_lrs": [cfg.d_lr]}, g_ema=g_ema)
 
 
 def export_nima(nima_dir: str, out: str) -> str:

@@ -332,8 +332,8 @@ def test_cpu_dispatch_and_refusals():
 
 # options the port raises for, naming the ROADMAP item that ports them; the
 # high-resolution options (tiles, native resolution, a forced strip height)
-# are ported and pass
-OUTSIDE_THE_PORT = {"g_norm_fun", "mesh_spatial", "g_use_sn"}
+# and spectral norm in the generator are ported and pass
+OUTSIDE_THE_PORT = {"g_norm_fun", "mesh_spatial"}
 
 
 @pytest.mark.parametrize("flags", [
@@ -380,14 +380,19 @@ def test_config_equals_jax_field_by_field(argv):
         get_config(["--quantized_inference", "int4"])
 
 
-@pytest.mark.parametrize("norm_fun", ["none", "BatchNorm"])
-def test_bridge_round_trip_is_bit_exact(norm_fun):
+@pytest.mark.parametrize("norm_fun, use_sn", [("none", False), ("BatchNorm", False),
+                                               ("none", True)],
+                         ids=["none", "BatchNorm", "use_sn"])
+def test_bridge_round_trip_is_bit_exact(norm_fun, use_sn):
     """numpy state dict -> flax tree (import_generator) -> torch state dict
     (from_flax) gives back the same bits, under names the port's Generator
-    loads strictly."""
-    g = Generator(conv_dim=8, norm_fun=norm_fun)
+    loads strictly; with spectral norm the kernels, u and v go through the
+    ``spectral`` tree."""
+    g = Generator(conv_dim=8, norm_fun=norm_fun, use_sn=use_sn)
     sd = fan_in_normal_state(g, seed=5)
-    back = generator_state_dict(import_generator(sd))
+    variables = import_generator(sd, use_sn=use_sn)
+    assert ("spectral" in variables) == use_sn
+    back = generator_state_dict(variables)
     assert sorted(back) == sorted(sd)
     for k, v in sd.items():
         assert back[k].dtype == torch.float32

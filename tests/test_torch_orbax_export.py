@@ -28,6 +28,8 @@ from uegan_tpu_torch.models.discriminator import Discriminator
 from uegan_tpu_torch.models.generator import Generator
 from uegan_tpu_torch.utils.checkpoint import find_checkpoint, load_pth
 
+from tests.test_torch_train_step import run  # noqa: F401  (JAX's two steps, a fixture)
+
 FLAGS = dict(g_conv_dim=8, d_conv_dim=8, resize_size=32, pool_size=4, g_ema_decay=0.999,
              checkpoint_async=False)
 
@@ -127,6 +129,77 @@ def test_export_live_weights_and_adam_moments(train_ckpt, tmp_path):
             assert_trees_equal(importer(by_name), tree)
         assert all(float(s["step"]) == float(adam.count) for s in opt["state"].values())
         torch.optim.Adam(model.parameters()).load_state_dict(opt)
+
+
+def test_export_live_carries_the_ema_and_a_resume_continues_it(run, tmp_path):
+    """--weights live of a JAX run with ``g_ema_decay > 0`` writes JAX's
+    ``g_ema`` as ``G_ema`` (by parameter name, bit-equal): JAX's state after
+    step 1 of tests/test_torch_train_step.py's two steps, saved by its
+    CheckpointManager and exported, resumes the port with JAX's average,
+    not the live weights; the port's step 2 then equals JAX's (losses rel
+    1e-4, parameters and the EMA by that file's rules)."""
+    from uegan_tpu_torch.train.state import load_checkpoint
+    from uegan_tpu_torch.train.step import make_train_step
+    from uegan_tpu_torch.utils.checkpoint import EMA_KEY
+
+    from tests.test_torch_train_step import (EMA_DECAY, _check_ema, _check_metrics,
+                                             _check_params, _port_state, _want)
+    from tests.test_torch_train_step import FLAGS as STEP_FLAGS
+
+    batches, sds, jstates, jmetrics, jemas = run
+    jcfg = JaxConfig(**STEP_FLAGS, g_ema_decay=EMA_DECAY, checkpoint_async=False)
+    ckpt_dir = CheckpointManager(str(tmp_path / "jax"), jcfg).save(
+        jstates[0].replace(g_ema=jemas[0]), 1 / len(batches))
+    pth = orbax_to_pth.export_checkpoint(ckpt_dir, str(tmp_path / "port"), weights="live")
+    ckpt = load_pth(pth)
+    assert sorted(ckpt[EMA_KEY]) == sorted(n for n, _ in Generator(conv_dim=8).named_parameters())
+    assert_trees_equal(import_generator(ckpt[EMA_KEY])["params"], jemas[0])
+    assert_trees_equal(import_generator(ckpt["G_net"])["params"], jstates[0].g_params)
+
+    cfg, state = _port_state(sds, len(batches), EMA_DECAY)
+    load_checkpoint(state, ckpt)
+    assert_trees_equal(import_generator({k: v.numpy() for k, v in state.g_ema.items()})["params"],
+                       jemas[0])
+    state.step = 1
+    b = batches[1]
+    pm, _ = make_train_step(state)(torch.from_numpy(b["img_raw"]), torch.from_numpy(b["img_exp"]))
+    _check_metrics(pm, jmetrics[1], 2)
+    want_g, want_d = _want(jstates[1])
+    _check_params("G", state.g, want_g, cfg.g_lr, cfg.weight_decay)
+    _check_params("D", state.d, want_d, cfg.d_lr, cfg.weight_decay)
+    want_ema = orbax_to_pth.generator_state_dict({"params": jemas[1]})
+    _check_ema(state.g_ema, {k: want_ema[k] for k in state.g_ema}, cfg.g_lr)
+
+
+def test_export_sn_generator_live_and_eval(tmp_path):
+    """A ``--g_use_sn true`` run: --weights live writes G's kernels as
+    ``weight_orig`` with the ``spectral`` u and v, and its EMA by the same
+    parameter names; --weights eval the EMA kernels beside the live u and
+    v (JAX applies ``g_ema`` with ``g_extra``).  JAX's importer reads both
+    back bit-equal, and the port's SN generator loads them strictly."""
+    cfg = JaxConfig(**FLAGS, g_use_sn=True)
+    state = seeded_tree(orbax_to_pth.train_state_template(cfg), seed=14)
+    state = state.replace(step=np.int32(8),
+                          g_ema=jax.tree_util.tree_map(lambda p: p + 0.01, state.g_params))
+    path = CheckpointManager(str(tmp_path / "jax_sn"), cfg).save(state, 2)
+    want = jax.device_get(restore_eval_state(path, orbax_to_pth.train_state_template(cfg),
+                                             use_ema=False))
+    assert "spectral" in want.g_extra
+    g = Generator(conv_dim=8, use_sn=True)
+    for weights, params in (("live", want.g_params), ("eval", want.g_ema)):
+        ckpt = load_pth(orbax_to_pth.export_checkpoint(path, str(tmp_path / f"{weights}.pth"),
+                                                       weights=weights))
+        assert_trees_equal(import_generator(ckpt["G_net"], use_sn=True),
+                           {"params": params, **want.g_extra})
+        g.load_state_dict(ckpt["G_net"], strict=True)
+        if weights == "live":  # parameters only: the SN kernels as weight_orig
+            ema = ckpt["G_ema"]
+            assert sorted(ema) == sorted(n for n, _ in g.named_parameters())
+            assert_trees_equal(import_generator(
+                {k.replace("weight_orig", "weight"): v for k, v in ema.items()})["params"],
+                want.g_ema)
+        else:
+            assert "G_ema" not in ckpt
 
 
 def test_export_nima_round_trip(tmp_path):

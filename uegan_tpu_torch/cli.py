@@ -16,7 +16,6 @@ from typing import Dict, List, Optional
 import torch
 
 from uegan_tpu_torch.config import Config, get_config
-from uegan_tpu_torch.models.blocks import ROADMAP_SN
 
 
 def resolve_device(name: Optional[str] = None) -> torch.device:
@@ -35,7 +34,6 @@ def check_supported(args: Config) -> None:
     unsupported = [
         (args.mesh_spatial > 1, "--mesh_spatial > 1: spatial sharding across devices is "
                                 "ROADMAP queue 1 items 8-9"),
-        (args.g_use_sn, ROADMAP_SN),
         (args.param_dtype != "float32", f"--param_dtype {args.param_dtype}: the port keeps "
                                         "float32 parameters"),
     ]

@@ -3,10 +3,11 @@
 Inverts uegan_tpu/convert/torch_import.py: ``import_generator`` (kernels go
 from HWIO to OIHW, norm ``scale``/``bias`` become ``weight``/``bias`` and
 the ``batch_stats`` ``mean``/``var`` become ``running_mean``/
-``running_var``), ``import_discriminator`` (a spectrally normalized kernel
+``running_var``; under ``--g_use_sn`` a spectrally normalized kernel
 becomes ``weight_orig``, its ``spectral`` ``u``/``v`` ``weight_u``/
-``weight_v``) and ``import_vgg19`` (``conv{s}_{i}_kernel`` becomes
-torchvision's ``features.{idx}.weight``) and ``import_nima`` (the
+``weight_v``), ``import_discriminator`` (the same spectral-norm names),
+``import_vgg19`` (``conv{s}_{i}_kernel`` becomes torchvision's
+``features.{idx}.weight``) and ``import_nima`` (the
 MobileNetV2 trunk's ``base/{stem,block{i}/{pw,dw,pw_linear},head_conv}``
 become the reference's ``base_model.0.{idx}``, the ``fc`` kernel is
 transposed into ``head.2.weight``).  ``adam_state_dict`` carries optax's
@@ -22,7 +23,6 @@ from typing import Any, Callable, Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from uegan_tpu_torch.models.blocks import ROADMAP_SN
 from uegan_tpu_torch.models.vgg import VGG19_CONVS, VGG19_TAIL
 
 
@@ -38,20 +38,32 @@ def _node(tree: Dict[str, Any], path: Tuple[str, ...]):
     return tree
 
 
+def _oihw(kernel) -> torch.Tensor:
+    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
+
+
 def generator_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """``{"params": ..., ["batch_stats": ...]}`` of :class:`uegan_tpu.models.
-    generator.Generator` -> state dict for ``uegan_tpu_torch``'s Generator."""
-    if variables.get("spectral"):
-        raise NotImplementedError(ROADMAP_SN)
+    """``{"params": ..., ["batch_stats": ...], ["spectral": ...]}`` of
+    :class:`uegan_tpu.models.generator.Generator` -> state dict for
+    ``uegan_tpu_torch``'s Generator.  A conv with ``spectral`` u and v (the
+    blocks, upsample convs and GAM fuse convs of a ``use_sn`` generator)
+    becomes ``weight_orig``, ``weight_u``, ``weight_v``."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
+    spectral = variables.get("spectral", {})
     sd: Dict[str, torch.Tensor] = {}
 
     def conv(path: Tuple[str, ...], prefix: str) -> None:
         node = _node(params, path)
         if node is None:
             raise KeyError(f"flax generator variables lack {'/'.join(path)}")
-        sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)))
+        uv = _node(spectral, path)
+        if uv is not None:
+            sd[f"{prefix}.weight_orig"] = _oihw(node["kernel"])
+            sd[f"{prefix}.weight_u"] = _t(uv["u"])
+            sd[f"{prefix}.weight_v"] = _t(uv["v"])
+        else:
+            sd[f"{prefix}.weight"] = _oihw(node["kernel"])
         if "bias" in node:
             sd[f"{prefix}.bias"] = _t(node["bias"])
 
@@ -80,10 +92,6 @@ def generator_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         conv((f"ga{i}", "excite"), f"ga{i}.conv.2")
         conv((f"ga{i}", "fuse"), f"ga{i}.fuse.0")
     return sd
-
-
-def _oihw(kernel) -> torch.Tensor:
-    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
 
 
 def discriminator_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -490,9 +490,28 @@ def packed_dec5_head(z: torch.Tensor, k6: torch.Tensor, b9: torch.Tensor,
 # ---------------------------------------------------------------------------
 # the packed generator forward
 # ---------------------------------------------------------------------------
+def _off_default(g: Generator) -> List[str]:
+    """The flags that take ``g`` off the default generator config (no norm,
+    LeakyReLU, no SN), which packing needs."""
+    return [flag for hit, flag in ((g.use_sn, "--g_use_sn true"),
+                                   (g.norm_fun != "none", f"--g_norm_fun {g.norm_fun}"),
+                                   (g.act_fun != "LeakyReLU", f"--g_act_fun {g.act_fun}"))
+            if hit]
+
+
 def is_default_generator(g: Generator) -> bool:
-    """Packing needs the default generator config: no norm, LeakyReLU, no SN."""
-    return g.norm_fun == "none" and g.act_fun == "LeakyReLU" and not g.use_sn
+    return not _off_default(g)
+
+
+def check_default_generator(g: Generator, what: str) -> None:
+    """Raise ``ValueError`` naming each flag that takes ``g`` off the
+    packed, int8 and strip forwards, where JAX asserts the same gate
+    (uegan_tpu/infer/strips.py:437, uegan_tpu/infer/quantized.py:431);
+    ``make_fast_eval`` routes such a generator to the canonical forward."""
+    flags = _off_default(g)
+    if flags:
+        raise ValueError(f"{what} supports the default generator config only, not "
+                         f"{', '.join(flags)}: make_fast_eval runs the canonical forward there")
 
 
 def make_packed_eval(g: Generator, packed: Dict) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -501,8 +520,7 @@ def make_packed_eval(g: Generator, packed: Dict) -> Callable[[torch.Tensor], tor
     :func:`pack_generator_params` on G's current weights; the interior reads
     G's modules.  Runs kernels C (entry), B (up1..up3) and D (exit) on a card.
     """
-    if not is_default_generator(g):
-        raise ValueError("packed inference supports the default generator config only")
+    check_default_generator(g, "packed inference")
     cd, dt = g.conv_dim, g.dtype
     s0 = packed_s0_statics()
     # the packed kernels and the full-res biases in the compute dtype once,

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from uegan_tpu_torch.infer.packed import (_DEC5_FIX, _DEC5_SLAB, _conv, depth_to_space,
-                                          is_default_generator, leaky, pack_generator_params,
+                                          check_default_generator, leaky, pack_generator_params,
                                           packed_conv, packed_gam_stats, packed_instance_norm,
                                           packed_reflect_pad, packed_resize2x_align_corners,
                                           packed_s0_statics)
@@ -233,6 +233,7 @@ def build_quant_tables(g: Generator, calib_batch=None,
       its entry chain in bf16 and quantizes the exit chain, JAX's default
       hybrid; True quantizes the entry too
     """
+    check_default_generator(g, "int8 packed inference")
     cd = g.conv_dim
     dev = g.enc1.main[1].weight.device
     packed = pack_generator_params(g.state_dict(), cd, device=dev)
@@ -283,8 +284,7 @@ def make_int8_eval(g: Generator, tables: Optional[Dict] = None, use_pallas: bool
     shapes, in practice ga1) through kernel E with its fused epilogue; the
     fused dec4 and dec5_0 sites are gated off by the 1x1 check, as in JAX.
     """
-    if not is_default_generator(g):
-        raise ValueError("int8 packed inference supports the default generator config only")
+    check_default_generator(g, "int8 packed inference")
     tabs = tables if tables is not None else build_quant_tables(g, calib_batch)
     cd = g.conv_dim
     dev = g.enc1.main[1].weight.device

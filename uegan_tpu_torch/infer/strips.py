@@ -47,7 +47,7 @@ import torch.nn.functional as F
 
 from uegan_tpu_torch.infer.packed import (_DEC5_FIX, _DEC5_SLAB, _conv, _interp_matrix_np,
                                           _pad_sources, _phase0_channels, depth_to_space,
-                                          gam_norm_eval, gam_x_weight, is_default_generator,
+                                          check_default_generator, gam_norm_eval, gam_x_weight,
                                           leaky, pack_generator_params, packed_s0_statics)
 from uegan_tpu_torch.models.blocks import to_nchw, to_nhwc
 from uegan_tpu_torch.models.generator import Generator, check_input_hw
@@ -397,8 +397,7 @@ def make_strip_eval(g: Generator, packed: Dict, strip_rows: int, chunk_strips: i
     ops on the same inputs as the resident chunked path, at twice the entry
     chain's work.  Only with a chunked exit and a bf16 entry.
     """
-    if not is_default_generator(g):
-        raise ValueError("strip inference supports the default generator config only")
+    check_default_generator(g, "strip inference")
     r = strip_rows
     if r <= 2 * _M_EXIT or r % 2:
         raise ValueError(f"strip_rows {r} must be even and > {2 * _M_EXIT}")
@@ -676,6 +675,7 @@ def make_int8_strip_eval(g: Generator, tables: Dict, strip_rows: int, chunk_stri
 def make_strip_fast_eval(g: Generator, strip_rows: int, chunk_strips: int = 0,
                          entry_chunked: bool = False) -> Callable[[torch.Tensor], torch.Tensor]:
     """The bf16/f32 strip executor packed from G's current weights."""
+    check_default_generator(g, "strip inference")
     packed = pack_generator_params(g.state_dict(), g.conv_dim,
                                    device=g.enc1.main[1].weight.device)
     return make_strip_eval(g, packed, strip_rows, chunk_strips, entry_chunked=entry_chunked)

@@ -10,11 +10,16 @@ and ``forward`` does that step itself.
 Activations are NCHW tensors in ``torch.channels_last`` memory; the two CUDA
 kernels take the NHWC view of them, which is contiguous, at no cost.
 
-Spectral norm (the discriminator's default) keeps the names of
-``torch.nn.utils.spectral_norm`` (``weight_orig``, ``weight_u``,
-``weight_v``) and the JAX package's semantics: one power iteration per
-train-mode forward, and ``sn_branches`` > 1 scales each branch of a fused
-forward by the sigma of its own iteration (ops/spectral_norm.py).
+Spectral norm (the discriminator's default; the generator's under
+``--g_use_sn true``) keeps the names of ``torch.nn.utils.spectral_norm``
+(``weight_orig``, ``weight_u``, ``weight_v``) and the JAX package's
+semantics: one power iteration per train-mode forward, the stored u and v
+in eval mode, and ``sn_branches`` > 1 scales each branch of a fused
+forward by the sigma of its own iteration (ops/spectral_norm.py).  In the
+generator it covers what JAX normalizes: the encoder and decoder
+ConvBlocks, the ``upsample{i}`` 1x1 SNConvs and each GAM's fuse conv
+(over the concat's 2 * nc input channels); never the GAM's squeeze and
+excite convs or the ``dec5`` head.
 """
 
 from __future__ import annotations
@@ -29,10 +34,6 @@ from uegan_tpu_torch.ops.conv import conv2d_reflect
 from uegan_tpu_torch.ops.gam_stats import gam_mean_std
 from uegan_tpu_torch.ops.norms import instance_norm
 from uegan_tpu_torch.ops.spectral_norm import spectral_sigmas
-
-ROADMAP_SN = ("spectral norm in the generator (--g_use_sn true) is not ported yet: the "
-              "discriminator's is, the generator's blocks and GAMs are ROADMAP queue 1 item 3")
-
 
 def get_act_fun(act_fun_type: str = "LeakyReLU") -> Callable[[torch.Tensor], torch.Tensor]:
     """Activation factory (reference models.py:249-264)."""
@@ -110,23 +111,38 @@ class SpectralConv2d(nn.Module):
         return y
 
 
+def block_conv(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1, bias: bool = True,
+               use_sn: bool = False, device=None) -> nn.Module:
+    """A generator block's conv: ``SpectralConv2d`` under spectral norm, else
+    ``nn.Conv2d`` (its parameters are what the packed and int8 paths read)."""
+    if use_sn:
+        return SpectralConv2d(in_ch, out_ch, kernel_size, stride, bias=bias, use_sn=True,
+                              device=device)
+    return nn.Conv2d(in_ch, out_ch, kernel_size, stride, bias=bias, device=device)
+
+
+def run_conv(conv: nn.Module, x: torch.Tensor, stride: int, dtype: torch.dtype) -> torch.Tensor:
+    """ReflectionPad + ``conv`` (from :func:`block_conv`) in ``dtype``; a
+    spectrally normalized one advances u and v in train mode."""
+    if isinstance(conv, SpectralConv2d):
+        return conv(x, dtype)
+    return conv2d_reflect(x, conv.weight, conv.bias, stride, dtype=dtype)
+
+
 class SNConv(nn.Module):
-    """ReflectionPad + conv (reference models.py:77-86); ``main.1`` is the conv."""
+    """ReflectionPad + (SN) conv (reference models.py:77-86); ``main.1`` is the conv."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
                  bias: bool = True, use_sn: bool = False, dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__()
-        if use_sn:
-            raise NotImplementedError(ROADMAP_SN)
         self.stride = stride
         self.dtype = dtype
         self.main = nn.Sequential(
-            nn.Identity(), nn.Conv2d(in_ch, out_ch, kernel_size, stride, bias=bias, device=device))
+            nn.Identity(), block_conv(in_ch, out_ch, kernel_size, stride, bias, use_sn, device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv = self.main[1]
-        return conv2d_reflect(x, conv.weight, conv.bias, self.stride, dtype=self.dtype)
+        return run_conv(self.main[1], x, self.stride, self.dtype)
 
 
 class NormLayer(nn.Module):
@@ -163,19 +179,17 @@ class ConvBlock(nn.Module):
                  norm_fun: str = "none", act_fun: str = "LeakyReLU", use_sn: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        if use_sn:
-            raise NotImplementedError(ROADMAP_SN)
         self.stride = stride
         self.dtype = dtype
-        layers = [nn.Identity(), nn.Conv2d(in_ch, out_ch, kernel_size, stride, device=device)]
+        layers = [nn.Identity(), block_conv(in_ch, out_ch, kernel_size, stride, True, use_sn,
+                                            device)]
         if norm_fun != "none":
             layers.append(NormLayer(norm_fun, out_ch, device=device))
         self.main = nn.Sequential(*layers)
         self.act = get_act_fun(act_fun)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv = self.main[1]
-        y = conv2d_reflect(x, conv.weight, conv.bias, self.stride, dtype=self.dtype)
+        y = run_conv(self.main[1], x, self.stride, self.dtype)
         if len(self.main) > 2:
             y = self.main[2](y)
         return self.act(y)
@@ -233,20 +247,19 @@ class GAM(nn.Module):
     """Global attention module (reference models.py:215-237): per-channel
     mean and unbiased std over H*W -> 1x1 squeeze (``conv.0``), ReLU, 1x1
     excite (``conv.2``) -> broadcast and concat with the input -> 1x1 fuse
-    (``fuse.0``) -> non-affine instance norm."""
+    (``fuse.0``, spectrally normalized under ``use_sn``; squeeze and excite
+    never are) -> non-affine instance norm."""
 
     def __init__(self, nc: int, reduction: int = 8, use_sn: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        if use_sn:
-            raise NotImplementedError(ROADMAP_SN)
         self.dtype = dtype
         self.conv = nn.Sequential(
             nn.Conv2d(2 * nc, nc // reduction, 1, bias=False, device=device),
             nn.ReLU(),
             nn.Conv2d(nc // reduction, nc, 1, bias=False, device=device),
         )
-        self.fuse = nn.Sequential(nn.Conv2d(2 * nc, nc, 1, device=device))
+        self.fuse = nn.Sequential(block_conv(2 * nc, nc, 1, use_sn=use_sn, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xh = to_nhwc(x)
@@ -257,6 +270,4 @@ class GAM(nn.Module):
         g = F.relu(conv2d_reflect(stats, sq.weight, dtype=self.dtype))
         g = to_nhwc(conv2d_reflect(g, ex.weight, dtype=self.dtype))
         out = to_nchw(torch.cat([xh, g.expand(n, h, w, c)], dim=-1))
-        fuse = self.fuse[0]
-        out = conv2d_reflect(out, fuse.weight, fuse.bias, dtype=self.dtype)
-        return instance_norm(out)
+        return instance_norm(run_conv(self.fuse[0], out, 1, self.dtype))

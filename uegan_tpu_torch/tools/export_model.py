@@ -85,21 +85,28 @@ def _generator(cfg, ckpt: str, out_path: str, device: torch.device):
     from uegan_tpu_torch.models.generator import Generator
     from uegan_tpu_torch.models.initializers import init_weights
     from uegan_tpu_torch.train.state import compute_dtype
-    from uegan_tpu_torch.utils.checkpoint import generator_state, load_pth, orbax_refusal
+    from uegan_tpu_torch.utils.checkpoint import (generator_state, load_pth, orbax_refusal,
+                                                  uses_spectral_norm)
     from uegan_tpu_torch.utils.seed import setup_seed
 
-    g = Generator(conv_dim=cfg.g_conv_dim, norm_fun=cfg.g_norm_fun, act_fun=cfg.g_act_fun,
-                  use_sn=cfg.g_use_sn, dtype=compute_dtype(cfg.compute_dtype))
-    if not ckpt:
-        init_weights(g, cfg.init_type, 0.02, setup_seed(cfg.seed))
-    elif os.path.isdir(ckpt):
+    sd = None
+    if os.path.isdir(ckpt):
         stem = os.path.splitext(os.path.abspath(out_path))[0]
         raise NotImplementedError(orbax_refusal(ckpt, stem + "_G.pth"))
-    elif ckpt.endswith(".pth"):
-        g.load_state_dict(generator_state(load_pth(ckpt), ema=cfg.ema_eval))
-    else:
+    if ckpt.endswith(".pth"):
+        sd = generator_state(load_pth(ckpt), ema=cfg.ema_eval)
+    elif ckpt:
         raise FileNotFoundError(f"--ckpt {ckpt!r} is neither a .pth file nor an orbax "
                                 "checkpoint directory")
+    # a --g_use_sn generator's file (weight_orig, u, v) builds one with
+    # spectral norm, whose forward make_fast_eval keeps canonical
+    g = Generator(conv_dim=cfg.g_conv_dim, norm_fun=cfg.g_norm_fun, act_fun=cfg.g_act_fun,
+                  use_sn=sd is not None and uses_spectral_norm(sd),
+                  dtype=compute_dtype(cfg.compute_dtype))
+    if sd is None:
+        init_weights(g, cfg.init_type, 0.02, setup_seed(cfg.seed))
+    else:
+        g.load_state_dict(sd)
     return g.to(device).eval()
 
 

@@ -1,9 +1,11 @@
 """Train state, counterpart of uegan_tpu/train/state.py.
 
-Everything a train step changes: the generator, the discriminator (with
-its spectral-norm u/v buffers), the two optimizers, the image pool and its
-generator of draws, the step count, and the EMA copy of G's parameters when
-``g_ema_decay > 0``.  The frozen VGG19 rides along.  Models hold float32
+Everything a train step changes: the generator (with its spectral-norm u/v
+buffers under ``--g_use_sn``), the discriminator (with its), the two
+optimizers, the image pool and its generator of draws, the step count, and
+the EMA copy of G's parameters when ``g_ema_decay > 0`` (by parameter name:
+a spectrally normalized kernel's ``weight_orig`` is averaged, its u and v
+are not, as JAX's ``g_ema`` averages ``g_params`` and not ``g_extra``).  The frozen VGG19 rides along.  Models hold float32
 parameters and compute in ``compute_dtype``.  Every random draw comes from
 an explicit ``torch.Generator`` seeded from ``seed``.
 """

@@ -3,25 +3,29 @@ uegan_tpu/train/step.py:make_train_step and make_eval_step.
 
 One step, in the reference's order (reference trainer.py:75-119):
 
-1. ``fuse_g``: one G forward on cat[raw, exp]; its raw half is the fake
-   image, kept with its autograd graph for the G update, and its exp half
-   the identity output;
+1. ``fuse_g`` (G without spectral norm): one G forward on cat[raw, exp];
+   its raw half is the fake image, kept with its autograd graph for the G
+   update, and its exp half the identity output.  Under ``--g_use_sn``,
+   G(raw) alone (G's u and v advance once);
 2. the pool query on the detached fake;
 3. the D update: one fused D forward over [exp, store, raw] with
    ``sn_branches=3`` (each branch scaled by the sigma of its own power
    iteration), rahinge sums, backward into D only, Adam on D;
-4. the G update against the updated D: with ``split_g_adv`` (the default)
-   D(exp) and D(fake) as two forwards, so spectral norm advances twice; the
-   adversarial loss, VGG fidelity on (x + 1) / 2 and the multiscale identity
-   loss on the G(exp) half; backward into G only, Adam on G;
+4. the G update against the updated D: under ``--g_use_sn`` first the
+   identity output G(exp), a second forward (G's u and v advance a second
+   time, after the raw forward's, as in JAX); with ``split_g_adv`` (the
+   default) D(exp) and D(fake) as two forwards, so D's spectral norm
+   advances twice; the adversarial loss, VGG fidelity on (x + 1) / 2 and
+   the multiscale identity loss on the identity output; one backward into
+   G only (under spectral norm it reaches each kernel through both
+   forwards' sigmas, the sum of JAX's two gradients), Adam on G;
 5. the EMA of G's parameters with the Karras warmup, when ``g_ema_decay > 0``.
 
 On a card G's GAM statistics and upsamples run kernels A and B forward and
 their backward kernels A' and B' (ops/gam_stats.py, ops/resize2x.py).  The
 JAX package's ``packed_train`` (a layout lever, equal math to float
 tolerance) has no counterpart: the port runs this canonical step under both
-values.  A G with spectral norm or norm layers (no ``fuse_g``) is not
-ported.
+values.  A G with train-mode norm layers is not ported.
 """
 
 from __future__ import annotations
@@ -33,7 +37,6 @@ import torch
 from uegan_tpu_torch.losses.gan import multiscale_gan_loss
 from uegan_tpu_torch.losses.perceptual import perceptual_loss
 from uegan_tpu_torch.losses.reconstruction import multiscale_rec_loss
-from uegan_tpu_torch.models.blocks import ROADMAP_SN
 from uegan_tpu_torch.models.generator import Generator
 from uegan_tpu_torch.train.schedules import make_lr_schedule, set_lr
 from uegan_tpu_torch.train.state import TrainState
@@ -46,14 +49,15 @@ def make_train_step(state: TrainState) -> Callable[[torch.Tensor, torch.Tensor],
     (metrics, images): the five losses as 0-d device tensors under JAX's
     names, and the fake, pool and identity images."""
     cfg = state.config
-    if cfg.g_use_sn:
-        raise NotImplementedError(ROADMAP_SN)
     if cfg.g_norm_fun != "none":
         raise NotImplementedError(
             f"--g_norm_fun {cfg.g_norm_fun}: train-mode normalization is not ported yet "
             "(ROADMAP queue 1 item 3)")
     g, d, vgg = state.g, state.d, state.vgg
     mode = cfg.adv_loss_type
+    # G(raw) and G(exp) as one batched forward where G is stateless per
+    # sample; spectral norm takes one power iteration a forward, so two
+    fuse_g = not cfg.g_use_sn
     fuse_d = cfg.fused_d and cfg.d_norm_fun == "none"
     g_params, d_params = list(g.parameters()), list(d.parameters())
     g_lr = make_lr_schedule(cfg.g_lr, state.steps_per_epoch, cfg.lr_decay,
@@ -68,9 +72,12 @@ def make_train_step(state: TrainState) -> Callable[[torch.Tensor, torch.Tensor],
         set_lr(state.g_opt, g_lr(state.step))
         set_lr(state.d_opt, d_lr(state.step))
 
-        # 1. one G forward for the fake and the identity output
-        g_both = g(torch.cat([img_raw, img_exp], dim=0))
-        fake, idt_out = g_both[:b], g_both[b:]
+        # 1. the fake (and, fused, the identity output)
+        if fuse_g:
+            g_both = g(torch.cat([img_raw, img_exp], dim=0))
+            fake, idt_out = g_both[:b], g_both[b:]
+        else:
+            fake = g(img_raw)
 
         # 2. the pool
         store = state.pool.query(fake) if cfg.pool_size > 0 else fake.detach()
@@ -94,6 +101,8 @@ def make_train_step(state: TrainState) -> Callable[[torch.Tensor, torch.Tensor],
         state.d_opt.step()
 
         # 4. the G update against the updated D
+        if not fuse_g:
+            idt_out = g(img_exp)
         if fuse_d and not cfg.split_g_adv:
             preds = d(torch.cat([img_exp, fake], dim=0), sn_branches=2)
             preds_real, preds_fake = [p[:b] for p in preds], [p[b:] for p in preds]

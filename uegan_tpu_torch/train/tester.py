@@ -13,8 +13,10 @@ to and from it.  Every batch runs at
 ``val_batch_size``: the tail batch is padded with zeros and cropped back,
 as in the JAX package.  The forward is ``infer/packed.py:make_fast_eval``
 (packed under the default ``--packed_inference true``; int8 under
-``--quantized_inference int8`` or ``int8_pallas``), built at the first
-batch, after the checkpoint load, so that the packed kernels are made from
+``--quantized_inference int8`` or ``int8_pallas``; a generator with
+spectral norm, ``--g_use_sn true``, takes the canonical forward on every
+route, tiles and native sizes included, as JAX's Tester does), built at the
+first batch, after the checkpoint load, so that the packed kernels are made from
 the loaded weights and not from the random init.  The int8 forward's
 activation scales are calibrated on that first batch as it runs: padded to
 ``val_batch_size`` and normalized to [-1, 1] in f32, as in the JAX Tester.

@@ -113,7 +113,8 @@ class Trainer:
 
     def eval_generator(self):
         """G for validation and samples: a copy holding the EMA parameters when
-        one is kept and ``ema_eval`` is on, else the live G."""
+        one is kept and ``ema_eval`` is on, with the live spectral-norm u and
+        v (JAX applies ``g_ema`` with the live ``g_extra``), else the live G."""
         if not (self.args.ema_eval and self.state.g_ema is not None):
             return self.state.g
         g = copy.deepcopy(self.state.g)

@@ -66,6 +66,12 @@ def generator_state(ckpt: Dict, ema: bool = False) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def uses_spectral_norm(g_state: Dict) -> bool:
+    """Whether ``g_state`` (a ``G_net`` state dict) is a ``--g_use_sn true``
+    generator's: its normalized convs keep ``weight_orig``."""
+    return any(k.endswith(".weight_orig") for k in g_state)
+
+
 def find_checkpoint(model_save_path: str, config: Config, epoch) -> str:
     """Path of the ``.pth`` for ``epoch``; raises if there is none, and if an
     orbax directory of the same stem exists beside it: the JAX Tester reads
