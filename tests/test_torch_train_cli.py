@@ -132,15 +132,42 @@ def test_sigterm_checkpoints_at_the_next_step_and_resumes(tmp_path, monkeypatch,
     assert "loaded trained models (epochs: 0.5)" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--remat", "true"], ["--cache_data", "true"],
-                                  ["--profile_dir", "profile"]])
+@pytest.mark.parametrize("flag", [["--remat", "true"], ["--cache_data", "true"]])
 def test_unported_train_flags_raise(flag, tmp_path, monkeypatch):
-    """JAX's --remat, --cache_data and --profile_dir are not ported: a train
-    run that asks for one stops before it starts, naming the ROADMAP item,
-    rather than running without it."""
+    """JAX's --remat and --cache_data are not ported: a train run that asks
+    for one stops before it starts, naming the ROADMAP item, rather than
+    running without it."""
     from uegan_tpu_torch import cli
 
     monkeypatch.setenv("UEGAN_TORCH_DEVICE", "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
         cli.run(_train_argv(str(tmp_path / "results"), 1) + flag)
     assert not os.path.exists(tmp_path / "results")
+
+
+def test_profile_dir_writes_a_trace_and_the_step_timing_line(tmp_path, monkeypatch, capsys):
+    """``--profile_dir``: a one-step run (batch 4 of the fixture's 4 pairs,
+    no validation) writes the profiler's trace of its step there and ends
+    with JAX's step timing line, with each phase's p50 read from the spans."""
+    import ast
+    import json
+
+    from uegan_tpu_torch import cli
+
+    monkeypatch.setenv("UEGAN_TORCH_DEVICE", "cpu")
+    prof_dir = tmp_path / "profile"
+    res = cli.run(_train_argv(str(tmp_path / "results"), 1) + [
+        "--train_batch_size", "4", "--num_epochs_start_val", "1",
+        "--profile_dir", str(prof_dir)])
+    assert res["steps"] == 1
+    trace, = os.listdir(prof_dir)
+    assert trace == "steps_0-0.pt.trace.json"
+    events = json.loads((prof_dir / trace).read_text())["traceEvents"]
+    assert any(e.get("name") == "aten::convolution" for e in events)
+    line, = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("=== step timing")]
+    timing = ast.literal_eval(line[len("=== step timing: "):-len(" ===")])
+    assert {"mean_s", "p50_s", "p90_s", "steps_per_s"} <= set(timing)
+    for name in ("train.g_forward", "train.d_backward", "train.g_optim", "trainer.fetch",
+                 "trainer.to_device", "trainer.post_step"):
+        assert timing[f"{name}_p50_ms"] > 0, name
+    assert 0 < timing["train.g_backward_p50_ms"] < 1e3 * timing["p50_s"]

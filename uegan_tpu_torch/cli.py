@@ -52,8 +52,6 @@ def check_supported(args: Config) -> None:
                          "is ROADMAP queue 1 item 6"),
             (args.cache_data, "--cache_data true: the RAM cache of decoded train images is "
                               "ROADMAP queue 1 item 6"),
-            (bool(args.profile_dir), f"--profile_dir {args.profile_dir}: the profiler trace and "
-                                     "the step timing line are ROADMAP queue 1 item 6"),
         ]
         for hit, why in train_unsupported:
             if hit:

@@ -21,6 +21,15 @@ One step, in the reference's order (reference trainer.py:75-119):
    forwards' sigmas, the sum of JAX's two gradients), Adam on G;
 5. the EMA of G's parameters with the Karras warmup, when ``g_ema_decay > 0``.
 
+Spans (utils/spans.py) mark the phases, in the root ``train.step``:
+``train.g_forward`` (1), ``train.pool`` (2), ``train.d_update`` (3: its
+``train.d_forward`` with the loss, ``train.d_backward``, and
+``train.d_optim`` around ``zero_grad`` and again around ``step``),
+``train.g_update`` (4: ``train.g_forward_exp`` under spectral norm,
+``train.g_losses``, ``train.g_backward``, ``train.g_optim`` twice) and
+``train.ema`` (5).  They time the host's side of each phase, its launches;
+the device runs behind it.
+
 On a card G's GAM statistics and upsamples run kernels A and B forward and
 their backward kernels A' and B' (ops/gam_stats.py, ops/resize2x.py).  The
 JAX package's ``packed_train`` (a layout lever, equal math to float
@@ -40,6 +49,7 @@ from uegan_tpu_torch.losses.reconstruction import multiscale_rec_loss
 from uegan_tpu_torch.models.generator import Generator
 from uegan_tpu_torch.train.schedules import make_lr_schedule, set_lr
 from uegan_tpu_torch.train.state import TrainState
+from uegan_tpu_torch.utils.spans import span
 
 
 def make_train_step(state: TrainState) -> Callable[[torch.Tensor, torch.Tensor],
@@ -66,6 +76,10 @@ def make_train_step(state: TrainState) -> Callable[[torch.Tensor, torch.Tensor],
                             cfg.lr_num_epochs_decay, cfg.lr_decay_ratio)
 
     def train_step(img_raw: torch.Tensor, img_exp: torch.Tensor):
+        with span("train.step"):
+            return _step(img_raw, img_exp)
+
+    def _step(img_raw: torch.Tensor, img_exp: torch.Tensor):
         b = img_raw.shape[0]
         g.train()
         d.train()
@@ -73,60 +87,75 @@ def make_train_step(state: TrainState) -> Callable[[torch.Tensor, torch.Tensor],
         set_lr(state.d_opt, d_lr(state.step))
 
         # 1. the fake (and, fused, the identity output)
-        if fuse_g:
-            g_both = g(torch.cat([img_raw, img_exp], dim=0))
-            fake, idt_out = g_both[:b], g_both[b:]
-        else:
-            fake = g(img_raw)
+        with span("train.g_forward"):
+            if fuse_g:
+                g_both = g(torch.cat([img_raw, img_exp], dim=0))
+                fake, idt_out = g_both[:b], g_both[b:]
+            else:
+                fake = g(img_raw)
 
         # 2. the pool
-        store = state.pool.query(fake) if cfg.pool_size > 0 else fake.detach()
+        with span("train.pool"):
+            store = state.pool.query(fake) if cfg.pool_size > 0 else fake.detach()
 
         # 3. the D update
-        if fuse_d:
-            parts = [img_exp, store] + ([img_raw] if cfg.adv_input else [])
-            preds = d(torch.cat(parts, dim=0), sn_branches=len(parts))
-            real = [p[:b] for p in preds]
-            d_loss = multiscale_gan_loss(real, [p[b:2 * b] for p in preds], mode, True)
-            if cfg.adv_input:
-                d_loss = d_loss + multiscale_gan_loss(real, [p[2 * b:] for p in preds], mode,
-                                                      True)
-        else:
-            real = d(img_exp)
-            d_loss = multiscale_gan_loss(real, d(store), mode, True)
-            if cfg.adv_input:
-                d_loss = d_loss + multiscale_gan_loss(real, d(img_raw), mode, True)
-        state.d_opt.zero_grad(set_to_none=True)
-        d_loss.backward(inputs=d_params)
-        state.d_opt.step()
+        with span("train.d_update"):
+            with span("train.d_forward"):
+                if fuse_d:
+                    parts = [img_exp, store] + ([img_raw] if cfg.adv_input else [])
+                    preds = d(torch.cat(parts, dim=0), sn_branches=len(parts))
+                    real = [p[:b] for p in preds]
+                    d_loss = multiscale_gan_loss(real, [p[b:2 * b] for p in preds], mode, True)
+                    if cfg.adv_input:
+                        d_loss = d_loss + multiscale_gan_loss(real, [p[2 * b:] for p in preds],
+                                                              mode, True)
+                else:
+                    real = d(img_exp)
+                    d_loss = multiscale_gan_loss(real, d(store), mode, True)
+                    if cfg.adv_input:
+                        d_loss = d_loss + multiscale_gan_loss(real, d(img_raw), mode, True)
+            with span("train.d_optim"):
+                state.d_opt.zero_grad(set_to_none=True)
+            with span("train.d_backward"):
+                d_loss.backward(inputs=d_params)
+            with span("train.d_optim"):
+                state.d_opt.step()
 
         # 4. the G update against the updated D
-        if not fuse_g:
-            idt_out = g(img_exp)
-        if fuse_d and not cfg.split_g_adv:
-            preds = d(torch.cat([img_exp, fake], dim=0), sn_branches=2)
-            preds_real, preds_fake = [p[:b] for p in preds], [p[b:] for p in preds]
-        else:
-            with torch.no_grad():  # no path to G's parameters; u, v still advance
-                preds_real = d(img_exp)
-            preds_fake = d(fake)
-        adv = cfg.lambda_adv * multiscale_gan_loss(preds_real, preds_fake, mode, False)
-        percep = cfg.lambda_percep * perceptual_loss(
-            vgg, (fake + 1.0) / 2.0, (img_raw + 1.0) / 2.0, split_label=cfg.split_percep_label)
-        idt = cfg.lambda_idt * multiscale_rec_loss(idt_out, img_exp, cfg.idt_loss_type)
-        g_loss = adv + percep + idt
-        state.g_opt.zero_grad(set_to_none=True)
-        g_loss.backward(inputs=g_params)
-        state.g_opt.step()
+        with span("train.g_update"):
+            if not fuse_g:
+                with span("train.g_forward_exp"):
+                    idt_out = g(img_exp)
+            with span("train.g_losses"):
+                if fuse_d and not cfg.split_g_adv:
+                    preds = d(torch.cat([img_exp, fake], dim=0), sn_branches=2)
+                    preds_real, preds_fake = [p[:b] for p in preds], [p[b:] for p in preds]
+                else:
+                    with torch.no_grad():  # no path to G's parameters; u, v still advance
+                        preds_real = d(img_exp)
+                    preds_fake = d(fake)
+                adv = cfg.lambda_adv * multiscale_gan_loss(preds_real, preds_fake, mode, False)
+                percep = cfg.lambda_percep * perceptual_loss(
+                    vgg, (fake + 1.0) / 2.0, (img_raw + 1.0) / 2.0,
+                    split_label=cfg.split_percep_label)
+                idt = cfg.lambda_idt * multiscale_rec_loss(idt_out, img_exp, cfg.idt_loss_type)
+                g_loss = adv + percep + idt
+            with span("train.g_optim"):
+                state.g_opt.zero_grad(set_to_none=True)
+            with span("train.g_backward"):
+                g_loss.backward(inputs=g_params)
+            with span("train.g_optim"):
+                state.g_opt.step()
 
         # 5. EMA, decay min(d, (1 + t) / (10 + t)) at the step before this one
         if state.g_ema is not None:
-            t = float(state.step)
-            keep = 1.0 - min(cfg.g_ema_decay, (1.0 + t) / (10.0 + t))
-            with torch.no_grad():
-                for name, p in g.named_parameters():
-                    e = state.g_ema[name]
-                    e.add_(p.detach().to(e.dtype) - e, alpha=keep)
+            with span("train.ema"):
+                t = float(state.step)
+                keep = 1.0 - min(cfg.g_ema_decay, (1.0 + t) / (10.0 + t))
+                with torch.no_grad():
+                    for name, p in g.named_parameters():
+                        e = state.g_ema[name]
+                        e.add_(p.detach().to(e.dtype) - e, alpha=keep)
         state.step += 1
         metrics = {"D/Total": d_loss.detach(), "G/Total": g_loss.detach(),
                    "G/adv_loss": adv.detach(), "G/percep_loss": percep.detach(),

@@ -49,6 +49,8 @@ from uegan_tpu_torch.utils.checkpoint import find_checkpoint, generator_state, l
 from uegan_tpu_torch.utils.image_io import (normalize_u8, quantize_u8, save_image,
                                             save_image_grid, to_uint8)
 from uegan_tpu_torch.utils.seed import setup_seed
+from uegan_tpu_torch.utils.spans import span
+
 
 def _host_norm_u8(u8: np.ndarray) -> np.ndarray:
     """uint8 -> float32 [-1, 1] on the host (the tile route's input)."""
@@ -106,13 +108,21 @@ class Tester:
         return self._fast_fn
 
     def _run(self, raw_batch: np.ndarray, u8_out: bool) -> np.ndarray:
-        b = raw_batch.shape[0]
-        raw = _pad_batch(np.asarray(raw_batch), max(b, self.args.val_batch_size))
-        x = normalize_u8(torch.from_numpy(np.ascontiguousarray(raw)).to(self.device))
-        with torch.inference_mode():
-            y = self._fast_eval(x)(x)
-            y = quantize_u8(y) if u8_out else y.float()
-        return y.cpu().numpy()[:b]
+        """One padded batch through the fast forward, under the spans
+        ``tester.run`` > ``tester.h2d`` (pad, the pageable copy up,
+        normalize), ``tester.forward`` (the host's launches of the forward and
+        the quantize) and ``tester.d2h`` (the wait for the card and the
+        copy back)."""
+        with span("tester.run"):
+            b = raw_batch.shape[0]
+            with span("tester.h2d"):
+                raw = _pad_batch(np.asarray(raw_batch), max(b, self.args.val_batch_size))
+                x = normalize_u8(torch.from_numpy(np.ascontiguousarray(raw)).to(self.device))
+            with torch.inference_mode(), span("tester.forward"):
+                y = self._fast_eval(x)(x)
+                y = quantize_u8(y) if u8_out else y.float()
+            with span("tester.d2h"):
+                return y.cpu().numpy()[:b]
 
     def _tiled(self, raw_batch: np.ndarray) -> np.ndarray:
         """Each image in overlapping ``--tile_size`` tiles through the

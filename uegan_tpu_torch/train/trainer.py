@@ -15,6 +15,15 @@ SIGTERM or SIGINT asks for a checkpoint at the next step and ends the loop;
 copy of G where both the run and the file keep one, at step
 E * steps_per_epoch.  The image pool starts empty on a resume, as the JAX
 package's ``.pth`` resume does.
+
+The run records its spans (utils/spans.py): ``trainer.fetch`` (the
+loader's next batch), ``trainer.to_device``, the step's own
+(train/step.py) and ``trainer.post_step`` (loss lines, whose ``float``
+waits for the card, samples, checkpoints, validation), and ends with JAX's
+``=== step timing: {...} ===`` line read from them (:func:`step_timing`).
+``--profile_dir DIR`` writes a ``torch.profiler`` trace of five steps (the
+11th to the 15th of the run, or its last five) into DIR, as JAX's
+``StepTimer.maybe_trace`` does with ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -24,7 +33,7 @@ import datetime
 import os
 import signal
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +47,7 @@ from uegan_tpu_torch.train.schedules import make_lr_schedule
 from uegan_tpu_torch.train.state import (count_params, create_train_state, load_checkpoint,
                                          save_checkpoint)
 from uegan_tpu_torch.train.step import make_train_step
+from uegan_tpu_torch.utils import spans
 from uegan_tpu_torch.utils.checkpoint import ckpt_name, find_checkpoint, load_pth
 from uegan_tpu_torch.utils.image_io import normalize_u8, quantize_u8, save_image, save_image_grid
 
@@ -54,6 +64,31 @@ def _u8_01(x: np.ndarray) -> np.ndarray:
 def _label255(x: np.ndarray) -> np.ndarray:
     """A loader's label batch (uint8, or float in [-1, 1]) -> float32 on the 255 scale."""
     return x.astype(np.float32) if x.dtype == np.uint8 else _denorm_np(x) * 255.0
+
+
+def step_timing(records: List[spans.Span]) -> Dict[str, float]:
+    """JAX's step timing (``mean_s``, ``p50_s``, ``p90_s``, ``steps_per_s``
+    over the host's time in ``train.step``, without the first two steps,
+    as JAX's ``StepTimer.summary``), and each other span's p50 host ms a
+    step (``<span>_p50_ms``: its time summed within each root span, the
+    first two left out alike), from the spans of a run, in order of start.
+    A run longer than the recorder's ring reads its last steps."""
+    per_root: Dict[Tuple[str, int], float] = {}
+    for s in records:
+        key = (s.name, s.root)
+        per_root[key] = per_root.get(key, 0.0) + (s.end_ns - s.start_ns) * 1e-9
+    by_name: Dict[str, List[float]] = {}
+    for (name, _), seconds in per_root.items():  # dicts keep the roots' order
+        by_name.setdefault(name, []).append(seconds)
+    steps = by_name.pop("train.step", [])
+    if not steps:
+        return {}
+    arr = np.asarray(steps[2:] or steps)
+    out = {"mean_s": float(arr.mean()), "p50_s": float(np.percentile(arr, 50)),
+           "p90_s": float(np.percentile(arr, 90)), "steps_per_s": float(1.0 / arr.mean())}
+    for name, seconds in by_name.items():
+        out[f"{name}_p50_ms"] = float(np.percentile(np.asarray(seconds[2:] or seconds), 50) * 1e3)
+    return out
 
 
 def info_line(start: float, step: int, total_steps: int, losses: Dict[str, float]) -> str:
@@ -163,6 +198,14 @@ class Trainer:
         print("======================= start training =======================")
         it = None
         last: Dict[str, float] = {}
+        # --profile_dir: torch.profiler over five steps, the 11th to the 15th
+        # of the run, or its last five when it has fewer
+        prof_first = start_step + min(10, max(0, total_steps - start_step - 5))
+        prof_end = min(prof_first + 5, total_steps)
+        prof, done = None, start_step
+        was_on = spans.enabled()
+        spans.enable()
+        t_run = time.time_ns()
         try:
             for step in range(start_step, total_steps):
                 if self._stop_requested:
@@ -175,18 +218,53 @@ class Trainer:
                     print(f"====== Epoch: {epoch:>3d}/{args.total_epochs}, "
                           f"G lr: [{self._g_lr(step):.6g}], D lr: [{self._d_lr(step):.6g}] ======")
                     it = None
-                if it is None:
-                    it = iter(self.loaders["ref"])
-                batch = next(it)
-                metrics, images = self._step_fn(self._to_device(batch["img_raw"]),
-                                                self._to_device(batch["img_exp"]))
-                last = self._post_step(step, total_steps, metrics, batch, images) or last
+                if args.profile_dir and step == prof_first:
+                    prof = self._start_profile()
+                with spans.span("trainer.fetch"):
+                    if it is None:
+                        it = iter(self.loaders["ref"])
+                    batch = next(it)
+                with spans.span("trainer.to_device"):
+                    raw, exp = self._to_device(batch["img_raw"]), self._to_device(batch["img_exp"])
+                metrics, images = self._step_fn(raw, exp)
+                with spans.span("trainer.post_step"):
+                    last = self._post_step(step, total_steps, metrics, batch, images) or last
+                done = step
+                if prof is not None and step + 1 == prof_end:
+                    self._stop_profile(prof, prof_first, step)
+                    prof = None
         finally:
+            if prof is not None:  # stopped early: keep what the profiler saw
+                self._stop_profile(prof, prof_first, max(done, prof_first))
+            spans.enable(was_on)
             for sig, h in old_handlers.items():
                 signal.signal(sig, h)
         self.val_best_results()
+        print(f"=== step timing: {step_timing(spans.recorded(t_run))} ===")
         print("=========== Complete training ===========")
         return {"steps": self.state.step, "last_losses": last}
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.__enter__()
+        return prof
+
+    def _stop_profile(self, prof, first: int, last: int) -> None:
+        """Close the profiler and write its trace (Chrome trace format, which
+        TensorBoard's PyTorch profiler plugin and Perfetto read) into
+        ``--profile_dir``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        os.makedirs(self.args.profile_dir, exist_ok=True)
+        path = os.path.join(self.args.profile_dir, f"steps_{first}-{last}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"=== profiler trace of steps {first}-{last} written to {path} ===")
 
     def _post_step(self, step: int, total_steps: int, metrics, batch, images) -> Optional[Dict]:
         args = self.args
