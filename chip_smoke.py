@@ -53,13 +53,20 @@ run with a non-zero exit on failure:
    A's and B's tolerances; each autograd Function's gradient against central
    differences of its plain forward in float64; C, D, E and F refusing
    inputs that require grad; A on two streams at once bit-equal to serial
-   calls, every stream's tickets back at zero;
+   calls, every stream's tickets back at zero.  The reflect pad
+   (ops/reflect_pad.py) at the packed forward's six shapes (B=16), G's
+   and D's in the train steps and PAD_EDGES (narrow words, misaligned
+   parts, pads as wide as the map or wider), float32 and bfloat16: the
+   forward bit-equal to F.pad of the concat, the backward bit-equal to
+   plain_backward and within one rounding of it in float64, the autograd of
+   the op and of the eager path bit-equal to plain_backward;
 4. model: the default generator (conv_dim 32, seeded N(0, 1/fan_in) weights)
    at 512 px in float32 with TF32 off.  Canonical forward: kernels against
    plain versions, max |d| <= 1e-4, launches gam_stats 5, upsample2x 4.
    Packed forward: kernels against plain versions <= 1e-4, against the
    canonical forward <= 2e-3, launches s2d_convert 1, residual_tail_d2s 1,
-   upsample2x 3, gam_stats 0.  Then the int8 and int8_pallas forwards in
+   upsample2x 3, gam_stats 0; reflect pads a forward (PAD_LAUNCHES) 11 (4
+   of two parts) and 6 (3).  Then the int8 and int8_pallas forwards in
    bfloat16 (batch 2, calibrated on their input): >= 30 dB from the bf16
    packed forward, int8_pallas vs int8 max |d| <= 0.02, kernels vs plain
    >= 40 dB and max |d| <= 0.05; launches a forward gam_stats 4,
@@ -73,14 +80,17 @@ run with a non-zero exit on failure:
    (s2d_convert 2, residual_tail_d2s 2, upsample2x 6, gam_stats 0), and with
    ``--quantized_inference int8_pallas`` (packed_conv_int8 2; with the
    calibration forward on the first batch gam_stats 12, upsample2x 9,
-   s2d_convert 3, residual_tail_d2s 2).  Each writes 8 result PNGs and the
+   s2d_convert 3, residual_tail_d2s 2); reflect pads twice a canonical and a
+   packed forward's, and three packed forwards' under int8_pallas (its
+   interior pads as the packed one).  Each writes 8 result PNGs and the
    PSNR, SSIM and NIMA CSVs, within 35 dB PSNR (30 dB for int8) of a float32
    canonical forward with the plain versions; then seconds per image of the
    packed default over 32 images with NIMA on and off (off, on, on, off);
 6. train: ``--mode train`` through uegan_tpu_torch.cli.run at the default
    width (cd 32, dd 32, 256 px crops of 512, batch 10, pool 50, bf16) on a
    synthetic FiveK layout of 30 pairs, 3 steps and a validation batch
-   (launches A 20, B 16, A' 15, B' 12) with NIMA and the on-device PSNR/SSIM
+   (launches A 20, B 16, A' 15, B' 12; reflect pads three steps' and a
+   canonical forward's) with NIMA and the on-device PSNR/SSIM
    on (the JAX defaults: both printed, NIMA's CSVs and best-epoch line
    written), then ``--mode test`` on the .pth it wrote; in process, 2 steps from one seeded state with the kernels and
    with the plain versions in float32 with TF32 off and deterministic cuDNN
@@ -90,7 +100,7 @@ run with a non-zero exit on failure:
    step 1's gradients against each other, per tensor and in L2, with the
    tensors whose gradients are rounding noise left out and named); 2
    bf16 steps finite with both nets moved; one step's launches A 5, B 4,
-   A' 5, B' 4; step time and images/s with kernels and with plain versions,
+   A' 5, B' 4, reflect pad 41 forward and 29 backward; step time and images/s with kernels and with plain versions,
    peak memory, and the step's device time by bucket under torch.profiler;
 6b. sn: spectral norm in the generator (``--g_use_sn true``) at the same
    width, whose train step is the unfused one (G(raw), the D update, then
@@ -101,7 +111,8 @@ run with a non-zero exit on failure:
    leading singular vectors): the canonical route, A 5 and B 4 a forward,
    C and D 0, PNGs >= 35 dB from the f32 plain canonical forward; 2 f32
    steps, kernels vs plain, with phase 6's limits and G's u and v within
-   1e-5; one bf16 step's launches A 10, B 8, A' 10, B' 8, C-F 0; ms per
+   1e-5; one bf16 step's launches A 10, B 8, A' 10, B' 8, C-F 0, reflect
+   pad 52 forward and 39 backward; ms per
    bf16 step with the kernels and the plain versions beside the fused
    default step, in turns, the peak device memory of an SN step, and its
    device time by bucket under torch.profiler;
@@ -121,10 +132,16 @@ run with a non-zero exit on failure:
    shapes, beside their plain versions and the library's (for A' the
    autograd of a torch.var_mean-based mean and std, device time from the
    profiler, as autograd's stream rules keep it out of a CUDA graph; for B'
-   aten.upsample_bilinear2d_backward);
+   aten.upsample_bilinear2d_backward); the reflect pad's forward at the
+   packed forward's six shapes (B=16) and forward and backward at G's
+   eleven in the fused and the SN step, beside its plain version (F.pad of
+   the 5-d view after torch.cat) and the library's (F.pad of the NCHW
+   concat; aten.reflection_pad3d_backward);
 8. profile: the canonical, packed and int8_pallas forwards at 512 px, batch
    8, bfloat16, under torch.profiler: wall and device-busy time per forward,
    the device's idle share, and device time in buckets of kernel names;
+   every profile of a forward or a train step fails where it holds an aten
+   reflect-pad kernel;
 9. NIMA (no kernel of its own: cuDNN convs and a cuBLAS linear layer, as
    JAX hands them to XLA): the f32 forward at 224 px, batch 16, TF32 off,
    against the module run on the CPU in float64 (probabilities <= 2e-5);
@@ -184,12 +201,13 @@ run with a non-zero exit on failure:
    a fresh interpreter that loads no jax and no uegan_tpu module: bit-equal
    to the eager make_fast_eval on the same weights and input (u8 in u8),
    one call's launches equal to one eager call's (packed and u8: C 1, B 3,
-   D 1; int8_pallas: A 4, B 3, C 1, D 1, E 1; strips: C 1, B 2, D 1) and to
-   the ops in the program's graph; each program's ms per forward beside the
+   D 1; int8_pallas: A 4, B 3, C 1, D 1, E 1; strips: C 1, B 2, D 1; the
+   reflect pads as the eager call) and to the ops in the program's graph; each program's ms per forward beside the
    eager forward's (CUDA events, in turns); then torch.library.opcheck on
    every kernel's op at a main-path shape on the card.
 
-It then prints the kernels' JSON line and, last, the device JSON line.  It
+It then prints the kernels' JSON line (each kernel's launches as counted on
+each path, the reflect pad's included) and, last, the device JSON line.  It
 exits non-zero without a result where CUDA is unavailable or where the
 uegan_tpu_torch package is not beside this file.
 """
@@ -296,6 +314,45 @@ INT8_PEAK_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data she
 BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 CD = 32
 HP = IMG // 2  # packed height and width
+# the reflect pad (ops/reflect_pad.py), (what, c1, c2, H = W, pad) of each
+# padded conv input: the packed forward's six at IMG (B = PAD_B: enc3 ..
+# enc5 on one part, dec1 .. dec3 on the two parts of their concat), G's
+# eleven in a train step at TRAIN_HW (the canonical route: enc1 .. enc5,
+# dec1 .. dec4, dec5's two) and D's ten (five stages, five heads)
+PAD_B = 16
+PAD_ENHANCE = [("enc3", 2 * CD, 0, IMG // 2, 1), ("enc4", 4 * CD, 0, IMG // 4, 1),
+               ("enc5", 8 * CD, 0, IMG // 8, 1), ("dec1", 8 * CD, 8 * CD, IMG // 8, 1),
+               ("dec2", 4 * CD, 4 * CD, IMG // 4, 1), ("dec3", 2 * CD, 2 * CD, IMG // 2, 1)]
+PAD_TRAIN_G = [("enc1", 3, 0, TRAIN_HW, 3), ("enc2", CD, 0, TRAIN_HW, 1),
+               ("enc3", 2 * CD, 0, TRAIN_HW // 2, 1), ("enc4", 4 * CD, 0, TRAIN_HW // 4, 1),
+               ("enc5", 8 * CD, 0, TRAIN_HW // 8, 1),
+               ("dec1", 8 * CD, 8 * CD, TRAIN_HW // 16, 1),
+               ("dec2", 4 * CD, 4 * CD, TRAIN_HW // 8, 1),
+               ("dec3", 2 * CD, 2 * CD, TRAIN_HW // 4, 1),
+               ("dec4", CD, CD, TRAIN_HW // 2, 1), ("dec5_0", CD, 0, TRAIN_HW, 1),
+               ("dec5_1", CD, 0, TRAIN_HW, 3)]
+PAD_TRAIN_D = [(f"d{i}", c, 0, TRAIN_HW >> (i - 1), p) for i, (c, p) in enumerate(
+    ((3, 3), (CD, 3), (2 * CD, 3), (4 * CD, 2), (8 * CD, 2)), 1)]
+PAD_TRAIN_D += [(f"d{i}_pred", CD << (i - 1), 0, TRAIN_HW >> i, p) for i, p in enumerate(
+    (3, 3, 3, 2, 2), 1)]
+# beyond them: channels that take 8-, 4- and 2-byte words, a part one element
+# past 16 bytes, pads as wide as the map or wider (n = 1, 2, 3), one pixel,
+# H != W, and a batch of one: (what, (N, c1, c2, H, W), pad, misaligned part)
+PAD_EDGES = [("ragged", (2, 12, 4, 7, 9), 1, None), ("3 ch", (2, 3, 0, 11, 6), 3, None),
+             ("5 + 3 ch", (2, 5, 3, 6, 10), 2, None), ("misaligned a", (2, 16, 16, 9, 8), 1, 0),
+             ("misaligned b", (2, 16, 16, 9, 8), 1, 1), ("n = 1", (2, 8, 8, 1, 1), 3, None),
+             ("n = 2", (2, 8, 0, 2, 2), 3, None), ("n = 3", (3, 8, 8, 3, 5), 3, None),
+             ("batch 1", (1, 64, 64, 33, 17), 1, None), ("pad 0", (2, 8, 8, 5, 5), 0, None)]
+# a step's reflect-pad launches (ops/reflect_pad.py's counters): forward,
+# of which two-part, backward, of which two-part
+PAD_LAUNCHES = {"canonical": {"reflect_pad": 11, "reflect_pad_two_part": 4,
+                              "reflect_pad_bwd": 0, "reflect_pad_bwd_two_part": 0},
+                "packed": {"reflect_pad": 6, "reflect_pad_two_part": 3,
+                           "reflect_pad_bwd": 0, "reflect_pad_bwd_two_part": 0},
+                "train": {"reflect_pad": 41, "reflect_pad_two_part": 4,
+                          "reflect_pad_bwd": 29, "reflect_pad_bwd_two_part": 4},
+                "sn_train": {"reflect_pad": 52, "reflect_pad_two_part": 8,
+                             "reflect_pad_bwd": 39, "reflect_pad_bwd_two_part": 8}}
 # kernel E's cases: (what, (N, L, W, Cin), Cout, S, s0, act, mul, requant); the
 # main path's ga1 (1x1), the dec4 and dec5_0 sites the fused path has, an
 # enc1-like 5x5 with 12 channels and tanh, ragged shapes, and the edges of
@@ -378,7 +435,7 @@ def card_line() -> str:
 
 
 PTXAS_SOURCES = ("packed_conv.cu", "packed_conv_int8.cu", "gam_stats.cu", "s2d_fuse.cu",
-                 "gam_stats_bwd.cu", "upsample2x.cu")
+                 "gam_stats_bwd.cu", "upsample2x.cu", "reflect_pad.cu")
 
 
 def kernel_name(mangled: str) -> str:
@@ -603,9 +660,12 @@ def plain_versions():
     through the kernels' plain PyTorch versions."""
     from uegan_tpu_torch.infer import packed, quantized, strips
     from uegan_tpu_torch.models import blocks, generator
-    from uegan_tpu_torch.ops import gam_stats, packed_conv_int8, resize2x, s2d_fuse
+    from uegan_tpu_torch.ops import (conv, gam_stats, packed_conv_int8, reflect_pad, resize2x,
+                                     s2d_fuse)
 
     swaps = [(blocks, "gam_mean_std", gam_stats.plain),
+             (conv, "reflect_pad", lambda parts, pad: reflect_pad.plain(
+                 parts[0], parts[1] if len(parts) == 2 else None, pad)),
              (generator, "upsample2x", resize2x.plain), (packed, "upsample2x", resize2x.plain)]
     swaps.append((strips, "upsample2x", resize2x.plain))
     for mod in (packed, quantized, strips):
@@ -669,9 +729,42 @@ def counts() -> dict:
     return {name: w.launches for name, w in _wrappers().items()}
 
 
+def pad_counts() -> dict:
+    """The reflect pad's launches, forward and backward, and of each those
+    that read or wrote two parts (a concat folded into the pad)."""
+    from uegan_tpu_torch.ops.reflect_pad import reflect_pad, reflect_pad_backward
+
+    return {"reflect_pad": reflect_pad.launches, "reflect_pad_two_part": reflect_pad.two_part,
+            "reflect_pad_bwd": reflect_pad_backward.launches,
+            "reflect_pad_bwd_two_part": reflect_pad_backward.two_part}
+
+
+# the reflect pad's launches on each path that the kernels line reports,
+# taken beside that path's counts() (note_pads) and printed as measured
+PADS_BY_PATH: dict = {}
+
+
+def note_pads(path: str, pads: dict | None = None) -> dict:
+    """Keep ``pads`` (by default pad_counts() now) as ``path``'s measured
+    reflect-pad launches, and return them."""
+    PADS_BY_PATH[path] = pad_counts() if pads is None else pads
+    return PADS_BY_PATH[path]
+
+
+def scaled_pads(*terms: tuple) -> dict:
+    """Σ k * PAD_LAUNCHES[path] over the (k, path) terms: the pads a run of
+    several forwards and steps should launch."""
+    return {key: sum(k * PAD_LAUNCHES[path][key] for k, path in terms)
+            for key in PAD_LAUNCHES["canonical"]}
+
+
 def reset_counts() -> None:
+    from uegan_tpu_torch.ops.reflect_pad import reflect_pad, reflect_pad_backward
+
     for w in _wrappers().values():
         w.launches = 0
+    for w in (reflect_pad, reflect_pad_backward):
+        w.launches = w.two_part = 0
 
 
 def check_counts(what: str, got: dict, want: dict) -> None:
@@ -1061,6 +1154,124 @@ def phase_backward_kernels(dev) -> dict:
     return worst
 
 
+def pad_cases() -> list:
+    """The reflect pad's cases: (what, (N, c1, c2, H, W), pad, misaligned
+    part) at the packed forward's shapes (B = PAD_B), G's and D's in the
+    fused train step (2 * TRAIN_B images through G, 3 * TRAIN_B through D's
+    update), G's under spectral norm (TRAIN_B), and PAD_EDGES."""
+    cases = [(f"enhance {w}", (PAD_B, c1, c2, hw, hw), p, None)
+             for w, c1, c2, hw, p in PAD_ENHANCE]
+    cases += [(f"train {w}", (TRAIN_B2, c1, c2, hw, hw), p, None)
+              for w, c1, c2, hw, p in PAD_TRAIN_G]
+    cases += [(f"sn {w}", (TRAIN_B, c1, c2, hw, hw), p, None)
+              for w, c1, c2, hw, p in PAD_TRAIN_G if c2]
+    cases += [(f"train {w}", (3 * TRAIN_B, c1, c2, hw, hw), p, None)
+              for w, c1, c2, hw, p in PAD_TRAIN_D]
+    return cases + PAD_EDGES
+
+
+def pad_parts(shape, dtype, gen, dev, misaligned=None) -> list:
+    """The pad's one or two channels-last parts of ``shape`` (N, c1, c2, H,
+    W), part ``misaligned`` one element past a 16-byte boundary."""
+    import torch
+
+    n, c1, c2, h, w = shape
+    parts = []
+    for i, c in enumerate((c1, c2) if c2 else (c1,)):
+        t = (torch.randn((n, h, w, c), generator=gen, device=dev) * 2 + 1).to(dtype)
+        if i == misaligned:
+            t = one_past(t)
+        parts.append(t.permute(0, 3, 1, 2))  # NCHW in channels-last memory
+    return parts
+
+
+def one_ulp(t, dtype):
+    """One ulp of ``t``'s values in ``dtype`` (bf16 or f32), with a floor for
+    sums that cancel to about 0."""
+    import torch
+
+    bits = 7 if dtype == torch.bfloat16 else 23
+    a = t.double().abs().clamp_min(2.0 ** -100)
+    return torch.exp2(torch.floor(torch.log2(a)) - bits).clamp_min(2.0 ** -100)
+
+
+def phase_pad_kernels(dev) -> dict:
+    """The reflect pad (ops/reflect_pad.py) against its plain versions at
+    every main-path shape and PAD_EDGES, float32 and bfloat16: the forward
+    bit-equal to F.pad(mode="reflect") of the concat (the gather where the
+    pad reaches the map), the backward bit-equal to plain_backward (the
+    same f32 sums in the same order) and within one rounding of it run in
+    float64 (one ulp, and the f32 additions' roundings); then the op's autograd on a two-part case against
+    plain_backward.  Returns the backward's worst |d| against float64."""
+    import torch
+
+    from uegan_tpu_torch.ops import reflect_pad as rp
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    worst, n_cases = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
+    reset_counts()
+    for what, shape, pad, mis in pad_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            parts = pad_parts(shape, dtype, gen, dev, mis)
+            got = rp.reflect_pad(parts, pad)
+            want = rp.plain(parts[0], parts[1] if len(parts) == 2 else None, pad)
+            dy = (torch.randn(got.shape, generator=gen, device=dev) * 2 + 1).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            if mis is not None:  # dy one element past 16 bytes too
+                dy = one_past(dy.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            dx = rp.reflect_pad_backward(dy, pad, shape[1])
+            dx_plain = rp.plain_backward(dy, pad, shape[1])
+            dx64 = rp.plain_backward(dy.double(), pad, shape[1])
+            mag64 = rp.plain_backward(dy.double().abs(), pad, shape[1])
+            torch.cuda.synchronize()
+            if not bits_equal(got, want) or not got.is_contiguous(
+                    memory_format=torch.channels_last):
+                raise AssertionError(f"reflect_pad {what} {shape} pad {pad} {dtype}: differs "
+                                     f"from F.pad of the concat")
+            if len(dx) != len(parts) or not all(bits_equal(a, b) for a, b in zip(dx, dx_plain)):
+                raise AssertionError(f"reflect_pad_backward {what} {shape} pad {pad} {dtype}: "
+                                     f"differs from plain_backward")
+            # the final rounding (one ulp), and the f32 additions' roundings
+            # before it: at most 3 half-ulps of f32 of the taps' magnitudes
+            err = max(float((a.double() - b).abs().max()) for a, b in zip(dx, dx64))
+            within = all(bool(((a.double() - b).abs() <= one_ulp(b, dtype) + 3 * 2.0 ** -24 * m)
+                              .all()) for a, b, m in zip(dx, dx64, mag64))
+            if not within:
+                raise AssertionError(f"reflect_pad_backward {what} {shape} pad {pad} {dtype}: "
+                                     f"{err:.3e} from float64, over one rounding")
+            worst[dtype] = max(worst[dtype], err)
+            n_cases += 1
+        log("3 kernels", f"reflect_pad {what} (N, c1, c2, H, W) {shape} pad {pad}"
+                         f"{' misaligned part ' + str(mis) if mis is not None else ''}: forward "
+                         f"bit-equal to F.pad of the concat, backward bit-equal to plain_backward, "
+                         f"f32 and bf16")
+    # autograd, both routes: the op's registered backward, and the eager
+    # path's (reflect_pad under autograd on a card; on the CPU it is aten's)
+    # are the backward kernel
+    parts = [t.detach().requires_grad_() for t in pad_parts((2, 16, 8, 12, 10), torch.bfloat16,
+                                                            gen, dev)]
+    routes = {"the op": lambda: rp.reflect_pad_op(*parts, 1)}
+    if dev.type == "cuda":
+        routes["the eager path"] = lambda: rp.reflect_pad(parts, 1)
+    for route, fn in routes.items():
+        out = fn()
+        dy = torch.randn(out.shape, generator=gen, device=dev).to(torch.bfloat16)
+        grads = torch.autograd.grad(out, parts, dy)
+        want = rp.plain_backward(dy.contiguous(memory_format=torch.channels_last), 1, 16)
+        if not all(bits_equal(a, b) for a, b in zip(grads, want)):
+            raise AssertionError(f"reflect_pad's autograd through {route} differs from "
+                                 f"plain_backward")
+    pads = pad_counts()
+    log("3 kernels", f"reflect_pad over {n_cases} cases: backward max abs from float64 f32 "
+                     f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e} (each within "
+                     f"one rounding); autograd through the op and the eager path bit-equal to "
+                     f"plain_backward; launches {pads}")
+    want_pads = 2 * len(pad_cases()) + 2
+    check_counts("the reflect pad's checks", (pads["reflect_pad"], pads["reflect_pad_bwd"]),
+                 (want_pads, want_pads))
+    return {"f32": worst[torch.float32], "bf16": worst[torch.bfloat16]}
+
+
 def two_streams_agree(gam_stats, rounds: list, what: str = "3 kernels") -> bool:
     """Kernel A over each round's inputs on two streams at once, alternating,
     against serial calls: the same bits, and every stream's tickets back at
@@ -1110,22 +1321,26 @@ def phase_model(dev) -> None:
         reset_counts()
         out_k = g(x)
         torch.cuda.synchronize()
-        canon = counts()
+        canon, canon_pads = counts(), pad_counts()
         with plain_versions():
             out_p = g(x)
         torch.cuda.synchronize()
         check_counts("one canonical forward", canon, {**zero, "gam_stats": 5, "upsample2x": 4})
-        check_counts("the plain canonical forward", counts(), canon)
+        check_counts("one canonical forward's reflect pads", canon_pads,
+                     PAD_LAUNCHES["canonical"])
+        check_counts("the plain canonical forward", (counts(), pad_counts()),
+                     (canon, canon_pads))
         reset_counts()
         pk_k = fwd(x)
         torch.cuda.synchronize()
-        pk = counts()
+        pk, pk_pads = counts(), pad_counts()
         with plain_versions():
             pk_p = fwd(x)
         torch.cuda.synchronize()
         check_counts("one packed forward", pk, {**zero, "s2d_convert": 1,
                                                 "residual_tail_d2s": 1, "upsample2x": 3})
-        check_counts("the plain packed forward", counts(), pk)
+        check_counts("one packed forward's reflect pads", pk_pads, PAD_LAUNCHES["packed"])
+        check_counts("the plain packed forward", (counts(), pad_counts()), (pk, pk_pads))
     for name, t in (("canonical", out_k), ("packed", pk_k)):
         if not bool(torch.isfinite(t).all()) or t.shape != x.shape:
             raise AssertionError(f"{name} output: shape {tuple(t.shape)}, finite "
@@ -1134,10 +1349,10 @@ def phase_model(dev) -> None:
     dp = float((pk_k - pk_p).abs().max())
     dpc = float((pk_k - out_k).abs().max())
     log("4 model", f"cd32 {IMG}px f32 (TF32 off) B=2 canonical: kernels vs plain max abs "
-                   f"{d:.3e} (limit 1e-4); launches per forward {canon}")
+                   f"{d:.3e} (limit 1e-4); launches per forward {canon}, {canon_pads}")
     log("4 model", f"cd32 {IMG}px f32 (TF32 off) B=2 packed: kernels vs plain max abs "
                    f"{dp:.3e} (limit 1e-4), vs canonical max abs {dpc:.3e} (limit 2e-3); "
-                   f"launches per forward {pk}")
+                   f"launches per forward {pk}, {pk_pads}")
     if d > 1e-4 or dp > 1e-4:
         raise AssertionError(f"a forward with kernels differs from plain: {d}, {dp}")
     if dpc > 2e-3:
@@ -1234,6 +1449,10 @@ def phase_end_to_end(dev, tmp: str) -> dict:
               "packed": {**zero, "s2d_convert": 2, "residual_tail_d2s": 2, "upsample2x": 6},
               "int8_pallas": {**zero, "packed_conv_int8": 2, "gam_stats": 12, "upsample2x": 9,
                               "s2d_convert": 3, "residual_tail_d2s": 2}}
+    # int8_pallas: the calibration's packed forward, then two int8 forwards,
+    # whose canonical interior pads as the packed forward's does
+    expect_pads = {"canonical": scaled_pads((2, "canonical")), "packed": scaled_pads((2, "packed")),
+                   "int8_pallas": scaled_pads((3, "packed"))}
     flags = {"canonical": ["--packed_inference", "false"], "packed": [],
              "int8_pallas": ["--quantized_inference", "int8_pallas"]}
     limit = {"canonical": 35.0, "packed": 35.0, "int8_pallas": 30.0}
@@ -1256,13 +1475,14 @@ def phase_end_to_end(dev, tmp: str) -> dict:
         reset_counts()
         res = cli.run(argv)
         torch.cuda.synchronize()
-        launched = counts()
+        launched, pads = counts(), note_pads(path)
         secs = time.time() - t0
         out_dir = os.path.join(root, "UEGAN-FiveK", "test", "test_results")
         outs = sorted(os.listdir(out_dir))
         if outs != [f"{n}_92.00_testFakeExp.png" for n in names] or res["n_images"] != 8:
             raise AssertionError(f"--mode test ({path}) wrote {outs}")
         check_counts(f"--mode test ({path}, 2 batches)", launched, expect[path])
+        check_counts(f"--mode test ({path}, 2 batches)'s reflect pads", pads, expect_pads[path])
         for sub, csv in (("psnr_test_results", "PSNR_epoch_92.0.csv"),
                          ("ssim_test_results", "SSIM_epoch_92.0.csv"),
                          ("nima_test_results", "NIMA_total_results_epoch_mean_std.csv")):
@@ -1573,7 +1793,7 @@ def phase_train(dev, card: str, tmp: str) -> dict:
     with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
         res = cli.run(argv)
     torch.cuda.synchronize()
-    cli_counts = counts()
+    cli_counts, cli_pads = counts(), note_pads("train")
     secs = time.time() - t0
     # NIMA and the on-device PSNR/SSIM ran in the validation, on the JAX defaults
     nima_total = os.path.join(root, "nima_val_results", "NIMA_total_results_epoch_mean_std.csv")
@@ -1587,6 +1807,8 @@ def phase_train(dev, card: str, tmp: str) -> dict:
     want["gam_stats"] += 5  # the validation forward (2 images, one batch)
     want["upsample2x"] += 4
     check_counts("--mode train (3 steps and one validation batch)", cli_counts, want)
+    check_counts("--mode train (3 steps and one validation batch)'s reflect pads", cli_pads,
+                 scaled_pads((3, "train"), (1, "canonical")))
     losses = res["last_losses"]
     pth = os.path.join(root, "UEGAN-FiveK", "models", "UEGAN-FiveK_rahinge_1.pth")
     if res["steps"] != 3 or not os.path.exists(pth) or not all(
@@ -1594,7 +1816,7 @@ def phase_train(dev, card: str, tmp: str) -> dict:
         raise AssertionError(f"--mode train: {res}, checkpoint {os.path.exists(pth)}")
     log("6 train", f"python -m uegan_tpu_torch --mode train, cd {CD} dd {CD}, {TRAIN_HW} px crops "
                    f"of {2 * TRAIN_HW}, B={TRAIN_B}, bf16, 30 pairs: 3 steps in {secs:.1f} s with "
-                   f"validation, last losses {losses}; launches {cli_counts}; wrote "
+                   f"validation, last losses {losses}; launches {cli_counts}, {cli_pads}; wrote "
                    f"{os.path.basename(pth)}; validation: {od[0].strip('= ')}, NIMA "
                    f"{open(nima_total).read().splitlines()[0]}")
     test_dir = os.path.join(data, "test")
@@ -1620,10 +1842,12 @@ def phase_train(dev, card: str, tmp: str) -> dict:
     step(*batches[2])
     torch.cuda.synchronize()
     check_counts("one bf16 train step", counts(), per_step)
+    step_pads = pad_counts()
+    check_counts("one bf16 train step's reflect pads", step_pads, PAD_LAUNCHES["train"])
     finite = all(math.isfinite(float(v)) for m in got for v in m.values())
     log("6 train", f"bf16 steps: losses {[{k: round(float(v), 4) for k, v in m.items()} for m in got]}"
                    f", finite {finite}; largest move G {moved['G']:.3e}, D {moved['D']:.3e}; "
-                   f"launches a step {per_step}")
+                   f"launches a step {per_step}, {step_pads}")
     if not finite or min(moved.values()) <= 0:
         raise AssertionError(f"bf16 train steps: finite {finite}, moved {moved}")
 
@@ -1644,6 +1868,7 @@ def phase_train(dev, card: str, tmp: str) -> dict:
     r = profile(lambda: step(*batches[0]), iters=5, warmup=2)
     log("6 train", f"train step under torch.profiler: wall {r['wall_ms']:.3f} ms per step, device "
                    f"busy {r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f} [{card}]")
+    check_no_aten_pad("6 train", "the fused train step", r)
     log("6 train", "| bucket | ms per step | kernels per step | share of busy |")
     for k, (b_ms, n) in sorted(r["buckets"].items(), key=lambda kv: -kv[1][0]):
         log("6 train", f"| {k} | {b_ms:.3f} | {n:g} | {b_ms / r['busy_ms']:.1%} |")
@@ -1704,10 +1929,12 @@ def phase_sn(dev, card: str, tmp: str) -> dict:
                    "--total_epochs", "1", "--num_epochs_start_val", "0",
                    "--val_each_epochs", "1", "--info_step", "1", "--sample_step", "2"] + common)
     torch.cuda.synchronize()
-    train_counts = counts()
+    train_counts, train_pads = counts(), note_pads("sn_train")
     want = {k: 2 * v + per_forward[k] for k, v in per_step.items()}  # + the validation batch
     check_counts("--mode train --g_use_sn true (2 steps and one validation batch)",
                  train_counts, want)
+    check_counts("--mode train --g_use_sn true (2 steps and one validation batch)'s reflect pads",
+                 train_pads, scaled_pads((2, "sn_train"), (1, "canonical")))
     pth = os.path.join(root, "UEGAN-FiveK", "models", "UEGAN-FiveK_rahinge_1.pth")
     ckpt = load_pth(pth)
     losses = res["last_losses"]
@@ -1716,7 +1943,8 @@ def phase_sn(dev, card: str, tmp: str) -> dict:
         raise AssertionError(f"--mode train --g_use_sn true: {res}, G_net {sorted(ckpt['G_net'])}")
     log("6b sn", f"python -m uegan_tpu_torch --mode train --g_use_sn true, cd {CD} dd {CD}, "
                  f"{TRAIN_HW} px crops, B={TRAIN_B}, bf16, 20 pairs: 2 steps with validation, "
-                 f"last losses {losses}; launches {train_counts}; wrote {os.path.basename(pth)} "
+                 f"last losses {losses}; launches {train_counts}, {train_pads}; wrote "
+                 f"{os.path.basename(pth)} "
                  f"(G_net with weight_orig, weight_u, weight_v)")
 
     # --mode test on the trainer's .pth (epoch 1; its residual is small, as
@@ -1735,16 +1963,18 @@ def phase_sn(dev, card: str, tmp: str) -> dict:
     names = sorted(n[:-len(".png")] for n in os.listdir(os.path.join(test_dir, "raw")))
     raw = np.stack([read_png_rgb(os.path.join(test_dir, "raw", n + ".png")) for n in names])
     test_counts = dict.fromkeys(KERNELS, 0)
+    test_pads = dict.fromkeys(PAD_LAUNCHES["canonical"], 0)
     for epoch in (1, 2):
         reset_counts()
         res = cli.run(["--mode", "test", "--test_img_dir", test_dir, "--test_label_dir",
                        os.path.join(test_dir, "label") + os.sep, "--pretrained_model",
                        str(epoch)] + common)
         torch.cuda.synchronize()
-        launched = counts()
+        launched, pads = counts(), pad_counts()
         check_counts(f"--mode test --g_use_sn true, epoch {epoch} (one batch: the canonical "
-                     "route)", launched, per_forward)
+                     "route)", (launched, pads), (per_forward, PAD_LAUNCHES["canonical"]))
         test_counts = {k: v + launched[k] for k, v in test_counts.items()}
+        test_pads = note_pads("sn_test", {k: v + pads[k] for k, v in test_pads.items()})
         got = np.stack([read_png_rgb(os.path.join(out_dir, f"{n}_{epoch}.00_testFakeExp.png"))
                         for n in names])
         g32 = Generator(conv_dim=CD, use_sn=True)
@@ -1779,6 +2009,9 @@ def phase_sn(dev, card: str, tmp: str) -> dict:
     step(*batches[2])
     torch.cuda.synchronize()
     check_counts("one bf16 train step with --g_use_sn true", counts(), per_step)
+    step_pads = pad_counts()
+    check_counts("one bf16 train step with --g_use_sn true's reflect pads", step_pads,
+                 PAD_LAUNCHES["sn_train"])
     fused_state = seeded_train_state("bfloat16", dev)
     steps = {"sn": step, "fused": make_train_step(fused_state)}
     times = {"sn kernels": [], "sn plain": [], "fused kernels": []}
@@ -1796,13 +2029,14 @@ def phase_sn(dev, card: str, tmp: str) -> dict:
     for k in ("sn kernels", "sn plain", "fused kernels"):
         log("6b sn", f"train step {TRAIN_HW}px B={TRAIN_B} bf16, {k}: {ms[k]:.3f} ms/step, "
                      f"{TRAIN_B * 1000 / ms[k]:.2f} img/s (runs {times[k]}) [{card}]")
-    log("6b sn", f"launches a bf16 step {per_step}; peak device memory of an SN step: "
+    log("6b sn", f"launches a bf16 step {per_step}, {step_pads}; peak device memory of an SN step: "
                  f"{peak:.3f} GiB [{card}]")
     r = profile(lambda: step(*batches[0]), iters=5, warmup=2)
     n_kernels = sum(n for _, n in r["buckets"].values())
     log("6b sn", f"SN train step under torch.profiler: wall {r['wall_ms']:.3f} ms per step, "
                  f"device busy {r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
                  f"{n_kernels:g} kernels a step [{card}]")
+    check_no_aten_pad("6b sn", "the SN train step", r)
     log("6b sn", "| bucket | ms per step | kernels per step | share of busy |")
     for k, (b_ms, n) in sorted(r["buckets"].items(), key=lambda kv: -kv[1][0]):
         log("6b sn", f"| {k} | {b_ms:.3f} | {n:g} | {b_ms / r['busy_ms']:.1%} |")
@@ -1945,6 +2179,7 @@ def phase_timing(dev, card: str) -> dict:
         log("7 timing", f"residual_tail_d2s {pshape} bf16: kernel {us(t, 'kernel')}, plain "
                         f"{us(t, 'plain')} per call [{card}]")
         timing_int8(dev, card, gen, b, add)
+        pads = timing_pad(dev, card, gen, three, us)
     methods = " and ".join(sorted(DEVICE_METHODS))
     for name in KERNELS:
         p = per[name]
@@ -1963,7 +2198,78 @@ def phase_timing(dev, card: str) -> dict:
                         f"({p['bytes'] / 1e6:.1f} MB at 3.35 TB/s: {t_bytes:.4f} ms; "
                         f"{p['ops'] / 1e9:.1f} G operations: {t_ops:.4f} ms), "
                         f"{p['bound'] / dv['kernel']:.0%} of the bound [{card}]")
-    return {"forward": fwd, "per_kernel": per}
+    return {"forward": fwd, "per_kernel": per, "reflect_pad": pads}
+
+
+def timing_pad(dev, card: str, gen, three, us) -> dict:
+    """The reflect pad device-only, in bfloat16, cold (each call takes the
+    next of a ring of inputs over 100 MB): its forward at the packed
+    forward's six shapes (B = PAD_B), forward and backward at G's eleven in
+    the fused train step (2 * TRAIN_B images) and in one of the SN step's two
+    G forwards (TRAIN_B); beside it the plain version (F.pad of the 5-d
+    NHWC view after torch.cat, the path the port took before the kernel)
+    and the library call (F.pad of the NCHW concat, aten's 4-d reflect
+    pad; backward: aten's reflection_pad3d_backward on the 5-d view, whose
+    dx the parts' split would still have to copy).  Bound: the bytes read
+    and written at 3.35 TB/s.  Returns the sums of each set: {set: {"fwd" |
+    "bwd": {"kernel", "plain", "library", "bound", "bytes"}}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from uegan_tpu_torch.ops import reflect_pad as rp
+
+    bf16 = torch.bfloat16
+    sets = {"enhance": (PAD_B, PAD_ENHANCE, False), "train": (TRAIN_B2, PAD_TRAIN_G, True),
+            "sn": (TRAIN_B, PAD_TRAIN_G, True)}
+    out = {}
+    for name, (b, shapes, backward) in sets.items():
+        tot = {d: dict.fromkeys(("kernel", "plain", "library", "bound", "bytes"), 0.0)
+               for d in (("fwd", "bwd") if backward else ("fwd",))}
+        for what, c1, c2, hw, p in shapes:
+            in_bytes = b * hw * hw * (c1 + c2) * 2
+            out_bytes = b * (hw + 2 * p) ** 2 * (c1 + c2) * 2
+
+            def timed(d, kern, plain, lib, ring):
+                t = three(ring_calls(kern, ring), ring_calls(plain, ring),
+                          ring_calls(lib, ring), 20)
+                nbytes = in_bytes + out_bytes
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                for k in ("kernel", "plain", "library"):
+                    tot[d][k] += t["device"][k]
+                tot[d]["bound"] += bound
+                tot[d]["bytes"] += nbytes
+                log("7 timing", f"reflect_pad {d} {name} {what} B={b} ({c1}+{c2} ch, {hw} px, "
+                                f"pad {p}) bf16: kernel {us(t, 'kernel')}, plain {us(t, 'plain')}, "
+                                f"library {us(t, 'library')}; bound {bound * 1e3:.2f} us "
+                                f"({nbytes / 1e6:.1f} MB), {bound / t['device']['kernel']:.0%} "
+                                f"of it [{card}]")
+
+            ring = 100_000_000 // in_bytes + 1
+            xs = [pad_parts((b, c1, c2, hw, hw), bf16, gen, dev) for _ in range(ring)]
+            cats = [x[0] if len(x) == 1 else torch.cat(x, dim=1) for x in xs]
+            timed("fwd", lambda i: rp.reflect_pad(xs[i], p),
+                  lambda i: rp.plain(xs[i][0], xs[i][1] if c2 else None, p),
+                  lambda i: F.pad(cats[i], (p, p, p, p), mode="reflect"), ring)
+            del xs, cats
+            if backward:
+                ring = 100_000_000 // out_bytes + 1
+                dys = [torch.randn((b, hw + 2 * p, hw + 2 * p, c1 + c2), generator=gen,
+                                   device=dev).to(bf16).permute(0, 3, 1, 2) for _ in range(ring)]
+                x5 = torch.empty((b, 1, hw, hw, c1 + c2), dtype=bf16, device=dev)
+                timed("bwd", lambda i: rp.reflect_pad_backward(dys[i], p, c1),
+                      lambda i: rp.plain_backward(dys[i], p, c1),
+                      lambda i: torch.ops.aten.reflection_pad3d_backward(
+                          dys[i].permute(0, 2, 3, 1).unsqueeze(1), x5, [0, 0, p, p, p, p]), ring)
+                del dys, x5
+        for d, v in tot.items():
+            log("7 timing", f"reflect_pad {d} per {'forward' if name == 'enhance' else 'G pass'} "
+                            f"({name}, B={b}): kernel {v['kernel']:.4f} ms, plain "
+                            f"{v['plain']:.4f}, library {v['library']:.4f}, bound "
+                            f"{v['bound']:.4f} ms ({v['bytes'] / 1e9:.3f} GB: "
+                            f"{v['bytes'] / v['kernel'] / 1e9:.3f} TB/s), "
+                            f"{v['bound'] / v['kernel']:.0%} of the bound [{card}]")
+        out[name] = tot
+    return out
 
 
 def timing_backward(dev, card: str, gen, three, add, us) -> None:
@@ -2164,6 +2470,16 @@ def profile(step, iters: int = 10, warmup: int = 5) -> dict:
                                                    for e in events), reverse=True)}
 
 
+def check_no_aten_pad(phase: str, what: str, r: dict) -> None:
+    """Fail where a profile() holds a reflect-pad kernel other than the
+    port's own (aten's reflection_pad kernels on the main path)."""
+    names = {name for _, name in r["longest"] if "reflection_pad" in name}
+    aten = sorted(name for name in names if "reflection_pad_nhwc" not in name)
+    log(phase, f"{what}: reflect-pad kernels under the profiler {sorted(names)}")
+    if aten:
+        raise AssertionError(f"{what} launched aten's reflect pad: {aten}")
+
+
 def phase_profile(dev, card: str) -> None:
     """Where the device time of each forward goes (512 px, B=8, bf16):
     canonical, packed, and int8 packed with kernel E."""
@@ -2177,8 +2493,9 @@ def phase_profile(dev, card: str) -> None:
         int8 = quantized.make_int8_eval(g, quantized.build_quant_tables(g, calib_batch=x),
                                         use_pallas=True)
         for name, fn in (("canonical", g), ("packed", packed_forward(g)), ("int8_pallas", int8)):
-            log_profile("8 profile", f"{name} forward {IMG}px B=8 bf16", profile(lambda: fn(x)),
-                        card)
+            r = profile(lambda: fn(x))
+            log_profile("8 profile", f"{name} forward {IMG}px B=8 bf16", r, card)
+            check_no_aten_pad("8 profile", f"the {name} forward", r)
 
 
 def log_profile(phase: str, what: str, r: dict, card: str) -> None:
@@ -2416,6 +2733,7 @@ def highres_cli(tmp: str, what: str, test_dir: str, sd: dict, extra: list) -> tu
     res = cli.run(argv)
     torch.cuda.synchronize()
     launched, secs = counts(), time.time() - t0
+    note_pads({"native": "strips"}.get(what, what))
     out_dir = os.path.join(root, "UEGAN-FiveK", "test", "test_results")
     pngs = {f.split("_92.00_")[0]: read_png_rgb(os.path.join(out_dir, f))
             for f in sorted(os.listdir(out_dir))}
@@ -2547,6 +2865,7 @@ def phase_highres(dev, card: str, tmp: str) -> dict:
         yp = i8p(x)
         torch.cuda.synchronize()
         launches["strips_int8"] = counts()
+        note_pads("strips_int8")
         with plain_versions():
             yplain = i8p(x)
     check_counts("one int8_pallas strip forward", launches["strips_int8"], strip_counts(sb, sb))
@@ -2831,6 +3150,7 @@ def phase_serve(dev, card: str, tmp: str) -> dict:
         outs = concurrently(enhance(srv), bodies)
         torch.cuda.synchronize()
         conc = counts()
+        note_pads("serve")
         calls = models._enhance_batcher.calls - calls0
         check_counts(f"{SERVE_CONCURRENT} concurrent /api/enhance ({calls} batched calls)", conc,
                      {k: v * calls for k, v in fwd.items()})
@@ -2937,6 +3257,7 @@ def phase_serve(dev, card: str, tmp: str) -> dict:
         concurrently(enhance(srv), bodies[1:5])
         torch.cuda.synchronize()
         run8 = counts()
+        note_pads("serve_int8")
         calls8 = srv.models._enhance_batcher.calls
     finally:
         stop_server(srv)
@@ -2962,6 +3283,7 @@ def phase_serve(dev, card: str, tmp: str) -> dict:
         first_n = time.perf_counter() - t0
         torch.cuda.synchronize()
         run_n = counts()
+        note_pads("serve_native")
         check_counts(f"one /api/enhance --keep_aspect {SERVE_NATIVE[0]}x{SERVE_NATIVE[1]} (the "
                      f"strips)", run_n,
                      {**zero, "s2d_convert": 1, "upsample2x": 2, "residual_tail_d2s": 1})
@@ -2995,7 +3317,7 @@ OP_KERNELS = {"gam_mean_std": "gam_stats", "gam_mean_std_train": "gam_stats",
               "gam_mean_std_backward": "gam_stats_bwd", "upsample2x": "upsample2x",
               "upsample2x_backward": "upsample2x_bwd", "s2d_convert": "s2d_convert",
               "residual_tail_d2s": "residual_tail_d2s", "packed_conv": "packed_conv",
-              "packed_conv_int8": "packed_conv_int8"}
+              "packed_conv_int8": "packed_conv_int8", "reflect_pad": "reflect_pad"}
 
 # a fresh interpreter for phase 12: load each exported program, run it once
 # on its saved input with the launch counts set to 0, save its output, and
@@ -3018,7 +3340,8 @@ for name in sys.argv[4:]:
     y = fn(x)
     if device == "cuda":
         torch.cuda.synchronize()
-    out[name] = {"launches": chip_smoke.counts(), "graph": kernel_calls(fn.program)}
+    out[name] = {"launches": chip_smoke.counts(), "pads": chip_smoke.pad_counts(),
+                 "graph": kernel_calls(fn.program)}
     np.save(f"{root}/{name}.out.npy", (y if y.dtype == torch.uint8 else y.float()).cpu().numpy())
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'uegan_tpu') or m.startswith('jax_'))
@@ -3041,6 +3364,7 @@ def export_opcheck(dev) -> None:
                                       dtype=torch.int8)
     x = r(2, 64, 64, 128)  # ga3's input at 512 px
     mean32, var32 = gam_stats.plain_stats32(x)
+    cl = lambda *shape: r(*shape).contiguous(memory_format=torch.channels_last)
     cases = {
         "s2d_convert": (r(2, IMG, IMG, 3, dt=torch.float32), torch.bfloat16),
         "residual_tail_d2s": (r(2, HP, HP, 12), r(2, HP, HP, 12)),
@@ -3054,6 +3378,10 @@ def export_opcheck(dev) -> None:
         "packed_conv_int8": (i8(2, HP, HP, 128), i8(128, 128, 1, 1),
                              r(128, dt=torch.float32).abs() * 1e-3, r(128, dt=torch.float32), 0,
                              "none", None, None, False),
+        # dec2's two parts at 512 px, requiring grad, so the backward runs too
+        "reflect_pad": (cl(2, 128, 128, 128).requires_grad_(),
+                        cl(2, 128, 128, 128).requires_grad_(), 1),
+        "reflect_pad_backward": (cl(2, 256, 130, 130), 1, 128),
     }
     for name, args in cases.items():
         result = torch.library.opcheck(getattr(torch.ops.uegan_torch, name).default, args)
@@ -3113,10 +3441,11 @@ def phase_export(dev, card: str, tmp: str) -> dict:
             reset_counts()
             y = step(x)
             torch.cuda.synchronize()
-            launched = counts()
+            launched, pads = counts(), pad_counts()
         check_counts(f"one eager {name} forward", launched, {**zero, **EXPORT_LAUNCHES[name]})
         np.save(os.path.join(tmp, f"{name}.in.npy"), x.cpu().numpy())
-        eager[name] = ((y if y.dtype == torch.uint8 else y.float()).cpu().numpy(), launched)
+        eager[name] = ((y if y.dtype == torch.uint8 else y.float()).cpu().numpy(), launched,
+                       pads)
         program = load_exported(path)
         times = {"eager": [], "program": []}
         iters = 10 if hw == IMG else 3
@@ -3150,22 +3479,25 @@ def phase_export(dev, card: str, tmp: str) -> dict:
     launches = {}
     for name, *_ in EXPORT_CASES:
         got = np.load(os.path.join(tmp, f"{name}.out.npy"))
-        want, launched = eager[name]
+        want, launched, pads = eager[name]
         if got.shape != want.shape or got.dtype != want.dtype or not np.array_equal(got, want):
             diff = (np.abs(got.astype(np.float64) - want.astype(np.float64)).max()
                     if got.shape == want.shape else "shape")
             raise AssertionError(f"the exported {name} program differs from the eager forward: "
                                  f"{got.shape} {got.dtype} vs {want.shape} {want.dtype}, "
                                  f"max |d| {diff}")
-        check_counts(f"one call of the exported {name} program", fresh[name]["launches"],
-                     launched)
-        graph = dict(zero)
+        check_counts(f"one call of the exported {name} program",
+                     (fresh[name]["launches"], fresh[name]["pads"]), (launched, pads))
+        graph = dict(zero, reflect_pad=0)
         for op, n in fresh[name]["graph"].items():
             graph[OP_KERNELS[op]] += n
-        check_counts(f"the exported {name} program's graph", graph, launched)
+        check_counts(f"the exported {name} program's graph", graph,
+                     dict(launched, reflect_pad=pads["reflect_pad"]))
         launches[f"export_{name}"] = fresh[name]["launches"]
+        note_pads(f"export_{name}", fresh[name]["pads"])
         log("12 export", f"{name}: the fresh interpreter's output bit-equal to the eager "
-                         f"forward ({got.dtype}); launches {fresh[name]['launches']}")
+                         f"forward ({got.dtype}); launches {fresh[name]['launches']}, "
+                         f"{fresh[name]['pads']}")
     export_opcheck(dev)
     return launches
 
@@ -3202,7 +3534,8 @@ def main() -> int:
     for line in ptxas:
         log("2 build", line)
     for key in ("Int8Epilogue", "FloatEpilogue", "gam_stats_kernel", "s2d_convert_kernel",
-                "gam_stats_bwd_kernel", "upsample2x_bwd_kernel"):
+                "gam_stats_bwd_kernel", "upsample2x_bwd_kernel", "reflection_pad_nhwc_kernel",
+                "reflection_pad_nhwc_bwd_kernel"):
         if not any(key in line for line in ptxas):
             raise AssertionError(f"ptxas's report names no {key} kernel")
 
@@ -3210,6 +3543,7 @@ def main() -> int:
     worst_s2d = phase_s2d_kernels(dev)
     worst_int8 = phase_int8_kernels(dev)
     worst_bwd = phase_backward_kernels(dev)
+    worst_pad = phase_pad_kernels(dev)
     phase_model(dev)
     phase_int8_model(dev)
     with tempfile.TemporaryDirectory(prefix="uegan_smoke_") as tmp:
@@ -3260,6 +3594,20 @@ def main() -> int:
             "eager_plain_ms": p["eager"]["plain"], "eager_library_ms": p["eager"]["library"],
             "device_time": sorted(DEVICE_METHODS),
         })
+    pad = timing["reflect_pad"]
+    kernels.append({
+        "name": "reflect_pad", "route": "cuda", "source": "uegan_tpu_torch/csrc/reflect_pad.cu",
+        "replaces": "none (JAX's jnp.pad, which XLA fuses into the conv)",
+        "launches": {key: sum(run[key] for run in PADS_BY_PATH.values())
+                     for key in PAD_LAUNCHES["canonical"]},
+        "launches_by_path": {path: PADS_BY_PATH[path] for path in launches},
+        "max_abs_err_bwd": worst_pad,
+        "ms": pad["enhance"]["fwd"]["kernel"], "plain_ms": pad["enhance"]["fwd"]["plain"],
+        "library_ms": pad["enhance"]["fwd"]["library"],
+        "bound_ms": pad["enhance"]["fwd"]["bound"], "bound_by": "bytes",
+        "per": f"packed forward, {IMG} px B={PAD_B}", "train": pad["train"], "sn": pad["sn"],
+        "device_time": sorted(DEVICE_METHODS),
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -174,17 +174,21 @@ def exported(tmp_path_factory):
 @pytest.mark.parametrize("name", ["s2d_convert", "residual_tail_d2s", "upsample2x",
                                   "upsample2x_backward", "gam_mean_std", "gam_mean_std_train",
                                   "gam_mean_std_backward", "packed_conv", "packed_conv_int8",
-                                  "packed_conv_int8_requant"])
+                                  "packed_conv_int8_requant", "reflect_pad",
+                                  "reflect_pad_two_parts", "reflect_pad_backward"])
 def test_opcheck_on_the_cpu(name):
     """``torch.library.opcheck`` (schema, autograd registration, the fake
     kernel against the CPU impl, AOT dispatch with dynamic shapes) on each
     op at a shape of the cd-8, 32 px forwards; A and B with inputs that
-    require grad, so their registered backwards (A', B') run too."""
+    require grad, so their registered backwards (A', B') run too; the
+    reflect pad with one and two parts that require grad (its backward
+    runs) and its backward op alone."""
     gen = torch.Generator().manual_seed(7)
     r = lambda *shape: torch.randn(*shape, generator=gen)
     i8 = lambda *shape: torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8)
     x = r(B, 16, 16, 8)
     mean32, var32 = gam_stats.plain_stats32(x)
+    cl = lambda *shape: r(*shape).contiguous(memory_format=torch.channels_last)
     cases = {
         "s2d_convert": (r(B, HW, HW, 3), torch.bfloat16),
         "residual_tail_d2s": (r(B, 16, 16, 12), r(B, 16, 16, 12)),
@@ -199,8 +203,13 @@ def test_opcheck_on_the_cpu(name):
         "packed_conv_int8_requant": (i8(B, 16, 16, 32), i8(32, 32, 3, 3),
                                      r(32).abs() * 1e-3, r(32), 1, "leaky",
                                      r(B, 16, 16, 32).to(torch.bfloat16), 0.05, True),
+        "reflect_pad": (cl(B, 8, 16, 16).requires_grad_(), None, 1),
+        "reflect_pad_two_parts": (cl(B, 8, 16, 16).requires_grad_(),
+                                  cl(B, 8, 16, 16).requires_grad_(), 1),
+        "reflect_pad_backward": (cl(B, 16, 18, 18), 1, 8),
     }
-    op = getattr(torch.ops.uegan_torch, name.replace("_requant", "")).default
+    op = getattr(torch.ops.uegan_torch,
+                 name.replace("_requant", "").replace("_two_parts", "")).default
     result = torch.library.opcheck(op, cases[name])
     assert set(result.values()) == {"SUCCESS"}, result
 
@@ -233,15 +242,17 @@ def test_int8_pallas_program_matches_the_eager_forward(exported):
     np.testing.assert_array_equal(exported["int8"], exported["eager_int8"])
     ops = exported["calls"]["int8"]
     assert ops == {"s2d_convert": 1, "gam_mean_std": 4, "upsample2x": 3,
-                   "packed_conv_int8": 1, "residual_tail_d2s": 1}, ops
+                   "packed_conv_int8": 1, "residual_tail_d2s": 1, "reflect_pad": 6}, ops
 
 
 def test_exported_graph_calls_the_kernels(exported):
-    """The packed route's program calls C once, B three times, D once, as
-    the eager forward launches them on a card."""
+    """The packed route's program calls C once, B three times, D once and
+    the reflect pad six times (enc3 .. enc5, and dec1 .. dec3 on the two
+    parts of their concat), as the eager forward launches them on a card."""
     for name in ("f32", "u8"):
         ops = exported["calls"][name]
-        assert ops == {"s2d_convert": 1, "upsample2x": 3, "residual_tail_d2s": 1}, (name, ops)
+        assert ops == {"s2d_convert": 1, "upsample2x": 3, "residual_tail_d2s": 1,
+                       "reflect_pad": 6}, (name, ops)
 
 
 class _Forward(torch.nn.Module):
@@ -312,12 +323,13 @@ def test_cuda_dispatch_reaches_fake_kernels_and_launches_nothing_when_traced():
     counted, no kernel library built."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from uegan_tpu_torch.ops import _build, packed_conv, packed_conv_int8, s2d_fuse
+    from uegan_tpu_torch.ops import _build, packed_conv, packed_conv_int8, reflect_pad, s2d_fuse
 
     ops = torch.ops.uegan_torch
     wrappers = (gam_stats.gam_mean_std, gam_stats.gam_mean_std_backward, resize2x.upsample2x,
                 resize2x.upsample2x_backward, s2d_fuse.s2d_convert, s2d_fuse.residual_tail_d2s,
-                packed_conv.packed_conv, packed_conv_int8.packed_conv_int8)
+                packed_conv.packed_conv, packed_conv_int8.packed_conv_int8,
+                reflect_pad.reflect_pad, reflect_pad.reflect_pad_backward)
     before = [w.launches for w in wrappers]
     lib = _build._lib
     with FakeTensorMode():
@@ -326,6 +338,7 @@ def test_cuda_dispatch_reaches_fake_kernels_and_launches_nothing_when_traced():
         i8 = torch.empty(B, 8, 8, 16, dtype=torch.int8, device="cuda")
         k8 = torch.empty(32, 16, 3, 3, dtype=torch.int8, device="cuda")
         v = torch.empty(32, device="cuda")
+        xc = torch.empty(B, 16, 8, 8, device="cuda", memory_format=torch.channels_last)
         got = {
             "s2d_convert": ops.s2d_convert(x, torch.bfloat16),
             "residual_tail_d2s": ops.residual_tail_d2s(x, x),
@@ -337,6 +350,8 @@ def test_cuda_dispatch_reaches_fake_kernels_and_launches_nothing_when_traced():
             "packed_conv": ops.packed_conv(x, torch.empty(32, 16, 3, 3, device="cuda"), v, 1,
                                            "none"),
             "packed_conv_int8": ops.packed_conv_int8(i8, k8, v, v, 1, "leaky", None, 0.1, True),
+            "reflect_pad": ops.reflect_pad(xc, xc, 2),
+            "reflect_pad_backward": ops.reflect_pad_backward(xc, 1, 10)[1],
         }
     want = {"s2d_convert": ((B, 4, 4, 64), torch.bfloat16),
             "residual_tail_d2s": ((B, 16, 16, 4), torch.float32),
@@ -346,7 +361,9 @@ def test_cuda_dispatch_reaches_fake_kernels_and_launches_nothing_when_traced():
             "gam_mean_std_train": ((B, 1, 1, 16), torch.float32),
             "gam_mean_std_backward": ((B, 8, 8, 16), torch.float32),
             "packed_conv": ((B, 8, 8, 32), torch.float32),
-            "packed_conv_int8": ((B, 8, 8, 32), torch.int8)}
+            "packed_conv_int8": ((B, 8, 8, 32), torch.int8),
+            "reflect_pad": ((B, 32, 12, 12), torch.float32),
+            "reflect_pad_backward": ((B, 6, 6, 6), torch.float32)}
     for name, t in got.items():
         assert (tuple(t.shape), t.dtype, t.device.type) == (*want[name], "cuda"), name
     assert [w.launches for w in wrappers] == before
@@ -356,7 +373,7 @@ def test_cuda_dispatch_reaches_fake_kernels_and_launches_nothing_when_traced():
 def test_cuda_impls_raise_where_the_kernels_cannot_launch(monkeypatch):
     """No fallback: each op's CUDA impl raises when the kernel library cannot
     be built or loaded; nothing runs the plain version in its place."""
-    from uegan_tpu_torch.ops import _build, packed_conv, packed_conv_int8, s2d_fuse
+    from uegan_tpu_torch.ops import _build, packed_conv, packed_conv_int8, reflect_pad, s2d_fuse
 
     def no_library():
         raise RuntimeError("nvcc not found")
@@ -365,6 +382,7 @@ def test_cuda_impls_raise_where_the_kernels_cannot_launch(monkeypatch):
     x = torch.randn(B, 8, 8, 16)
     s = torch.randn(B, 1, 1, 16)
     i8 = torch.randint(-127, 128, (B, 8, 8, 16), dtype=torch.int8)
+    xc = x.permute(0, 3, 1, 2)  # NCHW in channels-last memory, as the pad takes it
     calls = [lambda: s2d_fuse._s2d_cuda(x, torch.bfloat16),
              lambda: s2d_fuse._d2s_cuda(x, x),
              lambda: resize2x._launch(x),
@@ -375,7 +393,9 @@ def test_cuda_impls_raise_where_the_kernels_cannot_launch(monkeypatch):
                                                    torch.randn(32), 1, "none"),
              lambda: packed_conv_int8._packed_conv_int8_cuda(
                  i8, torch.randint(-127, 128, (32, 16, 1, 1), dtype=torch.int8),
-                 torch.rand(32), torch.randn(32), 0, "none", None, None, False)]
+                 torch.rand(32), torch.randn(32), 0, "none", None, None, False),
+             lambda: reflect_pad._launch(xc, xc, 1),
+             lambda: reflect_pad._launch_backward(xc, 1, 8)]
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()

@@ -547,9 +547,10 @@ def make_packed_eval(g: Generator, packed: Dict) -> Callable[[torch.Tensor], tor
         x3 = g.enc3(x2)
         x4 = g.enc4(x3)
         x5 = gam_norm_eval(g.enc5(x4), w_ga[5])
-        y1 = g.dec1(torch.cat([up_stage(1, x5), gam_norm_eval(x4, w_ga[4])], dim=1))
-        y2 = g.dec2(torch.cat([up_stage(2, y1), gam_norm_eval(x3, w_ga[3])], dim=1))
-        y3 = g.dec3(torch.cat([up_stage(3, y2), gam_norm_eval(x2, w_ga[2])], dim=1))
+        # dec1 .. dec3 read the concat of two parts, which their pad writes
+        y1 = g.dec1((up_stage(1, x5), gam_norm_eval(x4, w_ga[4])))
+        y2 = g.dec2((up_stage(2, y1), gam_norm_eval(x3, w_ga[3])))
+        y3 = g.dec3((up_stage(3, y2), gam_norm_eval(x2, w_ga[2])))
         # ga1 on the packed x1: block-diagonal x-part of the fuse, then IN
         ga1p = packed_instance_norm(_conv(x1p, pk["ga1_fuse_x_k"], None, dt), cd)
         # up4: the 1x1 conv first (2cd -> cd at half res), then the packed resize

@@ -618,8 +618,8 @@ def make_strip_eval(g: Generator, packed: Dict, strip_rows: int, chunk_strips: i
             x3n = to_nchw(x3)
             x4 = gm.enc4(x3n)
             x5 = gam_norm_eval(gm.enc5(x4), w_ga[5])
-            y1 = gm.dec1(torch.cat([up_stage(1, x5), gam_norm_eval(x4, w_ga[4])], dim=1))
-            y2 = gm.dec2(torch.cat([up_stage(2, y1), gam_norm_eval(x3n, w_ga[3])], dim=1))
+            y1 = gm.dec1((up_stage(1, x5), gam_norm_eval(x4, w_ga[4])))
+            y2 = gm.dec2((up_stage(2, y1), gam_norm_eval(x3n, w_ga[3])))
             del x3, x3n, x4, x5, y1
             # up3's 1x1 conv and W resize at half res, once; its H resize runs
             # per strip in the exit

@@ -21,7 +21,7 @@ from typing import Callable, List, Tuple
 import numpy as np
 import torch
 
-from uegan_tpu_torch.ops.conv import reflect_indices
+from uegan_tpu_torch.ops.reflect_pad import reflect_indices
 
 TILE_BATCH = 8
 

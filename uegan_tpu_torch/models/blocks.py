@@ -24,7 +24,7 @@ excite convs or the ``dec5`` head.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -60,6 +60,11 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+# a conv's input: one map, or the channel parts of a concat that the
+# reflect pad writes padded (ops/conv.py:conv2d_reflect)
+ConvInput = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
 class SpectralConv2d(nn.Module):
     """A conv's parameters, with spectral norm under the names
     ``torch.nn.utils.spectral_norm`` gives them (``weight_orig`` and the
@@ -82,12 +87,13 @@ class SpectralConv2d(nn.Module):
             self.weight = w
         self.bias = nn.Parameter(torch.zeros(out_ch, device=device)) if bias else None
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype, update_sn: bool = True,
+    def forward(self, x: ConvInput, dtype: torch.dtype, update_sn: bool = True,
                 sn_branches: int = 1) -> torch.Tensor:
-        """x (N, C, H, W) -> (N, out, H', W') in ``dtype``.  With spectral norm
-        and ``self.training`` and ``update_sn``, u and v advance by
-        ``sn_branches`` power iterations; ``sn_branches`` > 1 takes x as that
-        many equal batch slices that torch would run as sequential forwards."""
+        """x (N, C, H, W), or its channel parts -> (N, out, H', W') in
+        ``dtype``.  With spectral norm and ``self.training`` and
+        ``update_sn``, u and v advance by ``sn_branches`` power iterations;
+        ``sn_branches`` > 1 takes x as that many equal batch slices that
+        torch would run as sequential forwards."""
         if not self.use_sn:
             return conv2d_reflect(x, self.weight, self.bias, self.stride, dtype=dtype)
         update = update_sn and self.training
@@ -100,7 +106,7 @@ class SpectralConv2d(nn.Module):
         if sn_branches == 1:
             y = conv2d_reflect(x, self.weight_orig / sig[0], None, self.stride, dtype=dtype)
         else:
-            n = x.shape[0]
+            n = (x if torch.is_tensor(x) else x[0]).shape[0]
             if n % sn_branches:
                 raise ValueError(f"sn_branches {sn_branches} does not divide the batch {n}")
             y = conv2d_reflect(x, self.weight_orig, None, self.stride, dtype=dtype)
@@ -121,9 +127,10 @@ def block_conv(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1, bias:
     return nn.Conv2d(in_ch, out_ch, kernel_size, stride, bias=bias, device=device)
 
 
-def run_conv(conv: nn.Module, x: torch.Tensor, stride: int, dtype: torch.dtype) -> torch.Tensor:
-    """ReflectionPad + ``conv`` (from :func:`block_conv`) in ``dtype``; a
-    spectrally normalized one advances u and v in train mode."""
+def run_conv(conv: nn.Module, x: ConvInput, stride: int, dtype: torch.dtype) -> torch.Tensor:
+    """ReflectionPad + ``conv`` (from :func:`block_conv`) in ``dtype`` on x or
+    the concat of its channel parts; a spectrally normalized one advances u
+    and v in train mode."""
     if isinstance(conv, SpectralConv2d):
         return conv(x, dtype)
     return conv2d_reflect(x, conv.weight, conv.bias, stride, dtype=dtype)
@@ -188,7 +195,8 @@ class ConvBlock(nn.Module):
         self.main = nn.Sequential(*layers)
         self.act = get_act_fun(act_fun)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: ConvInput) -> torch.Tensor:
+        """x (N, C, H, W), or the channel parts of the concat it reads."""
         y = run_conv(self.main[1], x, self.stride, self.dtype)
         if len(self.main) > 2:
             y = self.main[2](y)

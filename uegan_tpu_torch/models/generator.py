@@ -58,7 +58,7 @@ class Generator(nn.Module):
         u = to_nchw(upsample2x(to_nhwc(y)))
         u = getattr(self, f"upsample{i}")[1](u)
         g = getattr(self, f"ga{5 - i}")(skip)
-        return getattr(self, f"dec{i}")(torch.cat([u, g], dim=1))
+        return getattr(self, f"dec{i}")((u, g))  # the pad writes the concat
 
     def residual(self, x: torch.Tensor) -> torch.Tensor:
         """x (N, H, W, 3) in [-1, 1] -> tanh residual (N, H, W, 3) in ``dtype``,

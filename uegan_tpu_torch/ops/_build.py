@@ -71,6 +71,11 @@ _SIGNATURES = {
     # x, wts, bias, out, dtype, n, l, w, cin, cout, S, s0, act, stream
     "uegan_packed_conv": [_P, _P, _P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, _I64,
                           ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    # a, b, out, n, h, w, pad, a's bytes a pixel, b's, word bytes, stream
+    "uegan_reflect_pad": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, ctypes.c_int, _P],
+    # dy, da, db, dtype, n, h, w, pad, c1, c2, vec, stream
+    "uegan_reflect_pad_bwd": [_P, _P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, _I64, _I64,
+                              ctypes.c_int, _P],
 }
 ACTS = {"none": 0, "leaky": 1, "tanh": 2}  # the C entry points' act argument
 # codes past the CUDA runtime's that the tensor-core body returns
@@ -225,13 +230,15 @@ def custom_op(schema: str, cpu, cuda, fake):
     return getattr(getattr(torch.ops, NAMESPACE), name).default
 
 
-def fresh(out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
-    """``out`` contiguous and sharing no memory with ``inputs``: a custom
-    op's output may not alias its input, where a plain version's reshape
-    or cast could."""
-    out = out.contiguous()
-    if any(out.untyped_storage().data_ptr() == t.untyped_storage().data_ptr() for t in inputs):
-        out = out.clone()
+def fresh(out: torch.Tensor, *inputs: Optional[torch.Tensor],
+          memory_format: torch.memory_format = torch.contiguous_format) -> torch.Tensor:
+    """``out`` contiguous (in ``memory_format``) and sharing no memory with
+    ``inputs`` (None ones skipped): a custom op's output may not alias its
+    input, where a plain version's reshape or cast could."""
+    out = out.contiguous(memory_format=memory_format)
+    if any(t is not None and out.untyped_storage().data_ptr() == t.untyped_storage().data_ptr()
+           for t in inputs):
+        out = out.clone(memory_format=memory_format)
     return out
 
 

@@ -3,8 +3,10 @@ uegan_tpu/ops/conv.py:conv2d_reflect.
 
 Every reference conv pads its input with ``nn.ReflectionPad2d`` of
 ``(k + (k-1)(d-1) - 1) // 2`` first (reference models.py:80).  Here that is
-``F.pad(mode="reflect")`` followed by ``F.conv2d`` on cuDNN.  Tensors are
-NCHW in ``torch.channels_last`` memory, and the pad keeps them so.
+the reflect-pad kernel (ops/reflect_pad.py), which also takes a conv's input
+as two channel parts and writes their concat padded, followed by
+``F.conv2d`` on cuDNN.  Tensors are NCHW in ``torch.channels_last`` memory,
+and the pad keeps them so.
 
 Dtype points follow the JAX package: the conv runs in ``dtype`` (input and
 f32 parameters cast to it; cuDNN accumulates bf16 in f32) and returns
@@ -14,10 +16,12 @@ f32 parameters cast to it; cuDNN accumulates bf16 in f32) and returns
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
+
+from uegan_tpu_torch.ops.reflect_pad import reflect_pad
 
 
 @contextlib.contextmanager
@@ -41,40 +45,23 @@ def same_reflect_padding(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size + (kernel_size - 1) * (dilation - 1) - 1) // 2
 
 
-def reflect_indices(n: int, pad: int, device=None) -> torch.Tensor:
-    """Source index of each of the n + 2 * pad positions of a reflect-padded
-    axis, as numpy's ``mode="reflect"`` gives them for any pad: period
-    2(n - 1), the border not repeated."""
-    idx = torch.arange(-pad, n + pad, device=device)
-    if n == 1:
-        return torch.zeros_like(idx)
-    m = torch.remainder(idx, 2 * (n - 1))
-    return torch.where(m > n - 1, 2 * (n - 1) - m, m)
-
-
 def conv2d_reflect(
-    x: torch.Tensor,
+    x: Union[torch.Tensor, Sequence[torch.Tensor]],
     weight: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     stride: int = 1,
     dilation: int = 1,
     dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """ReflectionPad2d + conv.  x (N, C, H, W), weight (O, I, k, k)."""
+    """ReflectionPad2d + conv.  x (N, C, H, W), or a tuple of channel parts
+    (N, Ci, H, W) that the conv reads as their concat; weight (O, I, k, k).
+    Any pad, as numpy's reflect (the discriminator's last stages at small
+    sizes pad as wide as the map)."""
     pad = same_reflect_padding(int(weight.shape[-1]), dilation)
-    x = x.to(dtype)
-    if pad and (pad >= x.shape[2] or pad >= x.shape[3]):
-        # F.pad refuses a reflect pad as wide as the map (the discriminator's
-        # last stages at small sizes); numpy's and so jnp.pad's reflect goes
-        # on reflecting, which is a gather of periodic indices
-        x = x[:, :, reflect_indices(x.shape[2], pad, x.device)][
-            :, :, :, reflect_indices(x.shape[3], pad, x.device)]
-    elif pad:
-        # pad the NHWC view as a 5-d (N, 1, H, W, C) map: the result stays
-        # channels-last, where F.pad of the NCHW tensor returns NCHW memory
-        # on the card and cuDNN then converts around every conv
-        xh = x.permute(0, 2, 3, 1).unsqueeze(1)
-        xh = F.pad(xh, (0, 0, pad, pad, pad, pad), mode="reflect")
-        x = xh.squeeze(1).permute(0, 3, 1, 2)
+    parts = [t.to(dtype) for t in (x if isinstance(x, (tuple, list)) else (x,))]
+    if pad:
+        x = reflect_pad(parts, pad)
+    else:
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     b = None if bias is None else bias.to(dtype)
     return F.conv2d(x, weight.to(dtype), b, stride=stride, dilation=dilation)
