@@ -116,6 +116,14 @@ run with a non-zero exit on failure:
    bf16 step with the kernels and the plain versions beside the fused
    default step, in turns, the peak device memory of an SN step, and its
    device time by bucket under torch.profiler;
+6c. norm cli: train-mode norm layers (``--g_norm_fun InstanceNorm
+   --d_norm_fun BatchNorm``) through uegan_tpu_torch.cli.run at the same
+   width on 20 synthetic pairs: 2 steps and a validation batch with 43
+   forward and 38 backward norm calls a step and the running statistics
+   moved in the .pth; a resume from it that restores them bit for bit and
+   runs 2 more steps; ``--mode test`` on the result and on a .pth of seeded
+   weights by the canonical route (A 5, B 4, no norm call), PNGs >= 35 dB
+   from the f32 plain canonical forward with the same running statistics;
 7. timing: images/s of the canonical and the packed forward at 512 px,
    batch 8, bfloat16, with kernels and with plain versions, and of the int8
    and int8_pallas forwards beside the packed one; each kernel's time beside
@@ -205,6 +213,15 @@ run with a non-zero exit on failure:
    reflect pads as the eager call) and to the ops in the program's graph; each program's ms per forward beside the
    eager forward's (CUDA events, in turns); then torch.library.opcheck on
    every kernel's op at a main-path shape on the card.
+
+13. norm: the train-mode norm layers' kernel pair (ops/norm_act.py,
+   csrc/norm_act.cu) against its plain versions run in float64 at the maps
+   of the cell g32inbn_train256 and at edge cases, float32 and bfloat16
+   (y, the statistics, the running statistics, dx, dweight, dbias; two
+   calls bit-equal); device-only ms of G's nine instance-norm and D's five
+   batch-norm calls beside the bound and aten's; a train step of the cell's
+   configuration: 43 forward and 38 backward norm calls, the norm kernels'
+   share of their bound under torch.profiler.
 
 It then prints the kernels' JSON line (each kernel's launches as counted on
 each path, the reflect pad's included) and, last, the device JSON line.  It
@@ -393,6 +410,7 @@ BUCKETS = [
     ("s2d_convert kernel (C)", ("s2d_convert_kernel",)),
     ("residual_tail_d2s kernel (D)", ("residual_tail_d2s_kernel",)),
     ("reflect pad", ("reflection_pad",)),
+    ("norm_act", ("norm_act_nhwc",)),
     ("concat", ("CatArrayBatchedCopy", "cat_")),
     ("row gathers (index_select)", ("indexSelect", "index_select")),
     ("optimizer (Adam)", ("multi_tensor_apply", "Adam", "adam")),
@@ -435,7 +453,7 @@ def card_line() -> str:
 
 
 PTXAS_SOURCES = ("packed_conv.cu", "packed_conv_int8.cu", "gam_stats.cu", "s2d_fuse.cu",
-                 "gam_stats_bwd.cu", "upsample2x.cu", "reflect_pad.cu")
+                 "gam_stats_bwd.cu", "upsample2x.cu", "reflect_pad.cu", "norm_act.cu")
 
 
 def kernel_name(mangled: str) -> str:
@@ -1272,6 +1290,262 @@ def phase_pad_kernels(dev) -> dict:
     return {"f32": worst[torch.float32], "bf16": worst[torch.bfloat16]}
 
 
+# the norm_act pair's edge cases (instance?, (N, C, H, W), misaligned x):
+# N = 1, one pixel, channels that take narrow words or a partial tile, an x
+# one element past a 16-byte boundary (one-channel words)
+NORM_EDGES = [(True, (1, 24, 7, 5), False), (False, (1, 24, 7, 5), False),
+              (False, (3, 12, 1, 1), False), (True, (2, 12, 1, 1), False),
+              (True, (2, 520, 3, 5), False), (False, (4, 40, 9, 9), True),
+              (True, (3, 64, 33, 17), True)]
+
+
+def norm_close(got, want, dtype, scale: float) -> tuple:
+    """(max |d|, within): float32 within 1e-4 of the tensor's scale plus
+    1e-5 of each value; bfloat16 within one ulp of each value plus 1e-4 of
+    the scale (the f32 statistics' round-off, before the rounding)."""
+    import torch
+
+    d = (got.double() - want).abs()
+    if dtype == torch.float32:
+        tol = 1e-4 * scale + 1e-5 * want.abs()
+    else:
+        tol = bf16_ulp(want).double() + 1e-4 * scale
+    return float(d.max()), bool((d <= tol).all())
+
+
+def norm_check(instance: bool, shape: tuple, dtype, gen, dev, misaligned: bool) -> dict:
+    """One call of the forward and backward kernels against ``plain`` and
+    ``plain_backward`` run in float64 on the same inputs: y, the mean and
+    variance, the running statistics, dx, dweight and dbias; dx leaves out
+    the elements whose float64 z is within 1e-4 of zero, where the
+    activation's slope may fall either way (counted).  Returns each
+    output's max |d|; raises where one is over its tolerance, or where a
+    second call's bits differ."""
+    import torch
+
+    from uegan_tpu_torch.ops import norm_act as na
+
+    n, c, h, w = shape
+    x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.3).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    if misaligned:
+        x = one_past(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    wt = 1 + 0.2 * torch.randn(c, generator=gen, device=dev)
+    b = 0.2 * torch.randn(c, generator=gen, device=dev)
+    rm0 = 0.1 * torch.randn(c, generator=gen, device=dev)
+    rv0 = 1 + torch.rand(c, generator=gen, device=dev)
+    dy = torch.randn(shape, generator=gen, device=dev).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    rm, rv = rm0.clone(), rv0.clone()
+    with torch.no_grad():
+        y, stats = na._forward(x, wt, b, rm, rv, instance, 0.2, 0.1, 1e-5)
+        y2, _ = na._forward(x, wt, b, rm0.clone(), rv0.clone(), instance, 0.2, 0.1, 1e-5)
+    mean, var = na.split_stats(stats, shape, instance)
+    dx, dw, db = na.norm_act_backward(dy, x, wt, b, stats, instance, 0.2)
+    dx2, _, _ = na.norm_act_backward(dy, x, wt, b, stats, instance, 0.2)
+    d64 = lambda t: t.double()
+    rm64, rv64 = d64(rm0), d64(rv0)
+    y64, mean64, var64 = na.plain(d64(x), d64(wt), d64(b), rm64, rv64, instance, 0.2)
+    dx64, dw64, db64 = na.plain_backward(d64(dy), d64(x), d64(wt), d64(b), mean64, var64,
+                                         instance, 0.2)
+    torch.cuda.synchronize()
+    if not (bits_equal(y, y2) and bits_equal(dx, dx2)):
+        raise AssertionError(f"norm_act {shape} {dtype}: two calls differ in bits")
+    if not (y.is_contiguous(memory_format=torch.channels_last)
+            and dx.is_contiguous(memory_format=torch.channels_last)):
+        raise AssertionError(f"norm_act {shape} {dtype}: outputs not channels-last")
+    gshape = (n, c, 1, 1) if instance else (1, c, 1, 1)
+    xh = (d64(x) - mean64.view(gshape)) * torch.rsqrt(var64.view(gshape) + 1e-5)
+    z = xh * d64(wt).view(1, -1, 1, 1) + d64(b).view(1, -1, 1, 1)
+    kink = z.abs() < 1e-4
+    dims = (0, 2, 3)
+    mag = (d64(dy).abs() * (xh.abs() + 1)).sum(dim=dims)
+    # where the f32 z and the f64 z fall either side of zero, dz differs by
+    # (1 - slope) dy: an element of dbias and dweight may take that much
+    flip = d64(dy).abs() * kink * 0.8
+    allow = {"dweight": (flip * xh.abs()).sum(dim=dims), "dbias": flip.sum(dim=dims)}
+    out, bad = {}, []
+    for name, got, want, scale, dt in (
+            ("y", y, y64, float(y64.abs().max()), dtype),
+            ("mean", mean, mean64, float(mean64.abs().max()) + 1, torch.float32),
+            ("var", var, var64, float(var64.abs().max()), torch.float32),
+            ("running_mean", rm, rm64, 1.0, torch.float32),
+            ("running_var", rv, rv64, float(rv64.abs().max()), torch.float32),
+            ("dx", torch.where(kink, dx64.to(dx.dtype), dx), dx64, float(dx64.abs().max()),
+             dtype)):
+        err, ok = norm_close(got, want, dt, scale)
+        out[name] = err
+        if not ok:
+            bad.append(f"{name} {err:.3e}")
+    for name, got, want in (("dweight", dw, dw64), ("dbias", db, db64)):
+        d = (got.double() - want).abs()
+        out[name] = float(d.max())
+        if not bool((d <= 1e-5 * mag + allow[name] + 1e-6).all()):
+            bad.append(f"{name} {out[name]:.3e}")
+    if bad:
+        raise AssertionError(f"norm_act {'instance' if instance else 'batch'} {shape} {dtype}"
+                             f"{' misaligned' if misaligned else ''}: {', '.join(bad)} over "
+                             "tolerance against float64")
+    out["kinks"] = int(kink.sum())
+    return out
+
+
+def norm_step_shapes() -> tuple:
+    """(G's nine, D's five) normalized maps of one forward of the cell
+    g32inbn_train256 (portbench/counts/norm_layers.py)."""
+    from portbench.counts import norm_layers
+
+    return norm_layers.maps(CD, CD, TRAIN_HW, TRAIN_B)
+
+
+def phase_norm(dev, card: str) -> dict:
+    """13. norm: the norm_act pair (ops/norm_act.py, csrc/norm_act.cu), the
+    train-mode instance and batch norms with the LeakyReLU folded in,
+    against its plain versions run in float64 (``norm_check``) at the maps
+    of the cell g32inbn_train256 (instance norm at G's nine, batch norm at
+    D's five, B=10 at 256 px; and each kind at the other's maps) and at
+    NORM_EDGES, float32 and bfloat16; then device-only ms of G's nine and
+    D's five calls, forward and backward, beside the bound (the bytes of
+    portbench/counts/norm_layers.py at 3.35 TB/s) and aten's
+    (``F.instance_norm`` and ``F.batch_norm`` on the channels-last maps,
+    then ``F.leaky_relu``; forward alone, and forward and backward through
+    ``torch.autograd.grad``, eager); then a train step of the cell's
+    configuration (bf16, seeded) on the card: its norm calls (43 forward,
+    38 backward), its norm kernels' device ms and share of the bound under
+    torch.profiler, and its host ms.  Returns the worst |d| and the times."""
+    import torch
+    import torch.nn.functional as F
+
+    from portbench.counts import norm_layers
+    from uegan_tpu_torch.ops import norm_act as na
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    g_maps, d_maps = norm_step_shapes()
+    worst = {}
+    cases = ([(True, s, False) for s in g_maps] + [(False, s, False) for s in d_maps]
+             + [(False, s, False) for s in g_maps[:5]] + [(True, s, False) for s in d_maps]
+             + NORM_EDGES)
+    for instance, shape, mis in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            r = norm_check(instance, shape, dtype, gen, dev, mis)
+            key = "bf16" if dtype == torch.bfloat16 else "f32"
+            for k, v in r.items():
+                if k != "kinks":
+                    worst[f"{key} {k}"] = max(worst.get(f"{key} {k}", 0.0), v)
+        log("13 norm", f"norm_act {'instance' if instance else 'batch'} {shape}"
+                       f"{' misaligned' if mis else ''}: f32 and bf16 within tolerance of "
+                       f"float64 (bf16 y {r['y']:.3e}, dx {r['dx']:.3e}, dweight "
+                       f"{r['dweight']:.3e}; {r['kinks']} dx elements at the slope's kink "
+                       "left out)")
+    log("13 norm", "worst |d| from float64 over " + str(2 * len(cases)) + " cases: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sorted(worst.items())))
+
+    # device-only times at the cell's maps, bf16
+    bf16 = torch.bfloat16
+    timings = {}
+    for what, instance, shapes in (("G instance norm, 9 maps", True, g_maps),
+                                   ("D batch norm, 5 maps", False, d_maps)):
+        xs = [torch.randn(s, generator=gen, device=dev).to(bf16).contiguous(
+            memory_format=torch.channels_last) for s in shapes]
+        dys = [torch.randn(s, generator=gen, device=dev).to(bf16).contiguous(
+            memory_format=torch.channels_last) for s in shapes]
+        ps = [(torch.ones(s[1], device=dev), torch.zeros(s[1], device=dev),
+               torch.zeros(s[1], device=dev), torch.ones(s[1], device=dev)) for s in shapes]
+        stats = [na._forward(x, *p, instance, 0.2, 0.1, 1e-5)[1] for x, p in zip(xs, ps)]
+
+        def fwd():
+            for x, p in zip(xs, ps):
+                na._forward(x, *p, instance, 0.2, 0.1, 1e-5)
+
+        def bwd():
+            for x, dy, p, st in zip(xs, dys, ps, stats):
+                na.norm_act_backward(dy, x, p[0], p[1], st, instance, 0.2)
+
+        def aten(x, p):
+            if instance:
+                y = F.instance_norm(x, p[2], p[3], p[0], p[1], use_input_stats=True,
+                                    momentum=0.1, eps=1e-5)
+            else:
+                y = F.batch_norm(x, p[2], p[3], p[0], p[1], training=True, momentum=0.1,
+                                 eps=1e-5)
+            return F.leaky_relu(y, 0.2)
+
+        def aten_fwd():
+            for x, p in zip(xs, ps):
+                aten(x, p)
+
+        leaves = [x.detach().requires_grad_() for x in xs]
+        wl = [(p[0].clone().requires_grad_(), p[1].clone().requires_grad_(), p[2], p[3])
+              for p in ps]
+
+        def aten_both():
+            for x, p, dy in zip(leaves, wl, dys):
+                torch.autograd.grad(aten(x, p), (x, p[0], p[1]), dy)
+
+        def ours_both():
+            for x, p, dy in zip(leaves, wl, dys):
+                torch.autograd.grad(na.norm_act(x, p[0], p[1], p[2], p[3], instance, 0.2),
+                                    (x, p[0], p[1]), dy)
+
+        fb = sum(norm_layers.forward_bytes(s, 2, instance) for s in shapes)
+        bb = sum(norm_layers.backward_bytes(s, 2, instance) for s in shapes)
+        t = {"fwd_ms": graph_ms(fwd, 10), "bwd_ms": graph_ms(bwd, 10),
+             "fwd_bound_ms": fb / 3.35e12 * 1e3, "bwd_bound_ms": bb / 3.35e12 * 1e3}
+        try:
+            t["aten_fwd_ms"] = graph_ms(aten_fwd, 10)
+        except Exception as e:  # noqa: BLE001 - a library path that does not capture
+            t["aten_fwd_ms"] = cuda_ms(aten_fwd, 20)
+            log("13 norm", f"aten forward not captured ({type(e).__name__}); eager time")
+        t["eager_both_ms"] = cuda_ms(ours_both, 20)
+        t["aten_eager_both_ms"] = cuda_ms(aten_both, 20)
+        timings[what] = t
+        share_f, share_b = t["fwd_bound_ms"] / t["fwd_ms"], t["bwd_bound_ms"] / t["bwd_ms"]
+        log("13 norm", f"{what} bf16 (B={TRAIN_B}, {TRAIN_HW} px; {card}): forward "
+                       f"{t['fwd_ms']:.4f} ms device-only ({100 * share_f:.0f}% of the bound "
+                       f"{t['fwd_bound_ms']:.4f}), aten {t['aten_fwd_ms']:.4f}; backward "
+                       f"{t['bwd_ms']:.4f} ({100 * share_b:.0f}% of {t['bwd_bound_ms']:.4f}); "
+                       f"forward and backward eager {t['eager_both_ms']:.4f} against aten's "
+                       f"{t['aten_eager_both_ms']:.4f}")
+        del xs, dys, leaves, stats
+
+    # a train step of the cell's configuration
+    state = seeded_train_state("bfloat16", dev, g_norm_fun="InstanceNorm",
+                               d_norm_fun="BatchNorm")
+    for m in (state.g, state.d):
+        for name, t in m.named_parameters():
+            if name.endswith((".main.2.weight", ".0.2.weight")):
+                with torch.no_grad():
+                    t.add_(1.0)  # a norm layer's weight about 1, not the recipe's 0.1 scale
+    from uegan_tpu_torch.train.step import make_train_step
+
+    step = make_train_step(state)
+    batches = train_batches(dev, 3)
+    step(*batches[0])
+    torch.cuda.synchronize()
+    f0, b0 = na.norm_act.launches, na.norm_act_backward.launches
+    step(*batches[1])
+    torch.cuda.synchronize()
+    got = (na.norm_act.launches - f0, na.norm_act_backward.launches - b0)
+    fwd_list, bwd_list = norm_layers.launches(CD, CD, TRAIN_HW, TRAIN_B)
+    check_counts("one norm train step's norm calls", got, (len(fwd_list), len(bwd_list)))
+    r = profile(lambda: step(*batches[2]), iters=5, warmup=2)
+    norm_ms = sum(ms for bucket, (ms, _) in r["buckets"].items() if bucket == "norm_act")
+    cfg = {"g_conv_dim": CD, "d_conv_dim": CD, "compute_dtype": "bfloat16",
+           "g_norm_fun": "InstanceNorm", "d_norm_fun": "BatchNorm"}
+    bound = norm_layers.step_bytes(cfg, {"image_hw": TRAIN_HW, "batch": TRAIN_B}) / 3.35e12 * 1e3
+    timings["step"] = {"norm_ms": norm_ms, "bound_ms": bound, "wall_ms": r["wall_ms"],
+                       "busy_ms": r["busy_ms"], "launches": got}
+    log("13 norm", f"train step of g32inbn_train256's configuration (bf16, {card}): "
+                   f"{got[0]} forward and {got[1]} backward norm calls; norm kernels "
+                   f"{norm_ms:.3f} ms a step, {100 * bound / max(norm_ms, 1e-9):.1f}% of the "
+                   f"bound {bound:.3f} ms; step wall {r['wall_ms']:.1f} ms, busy "
+                   f"{r['busy_ms']:.1f} ms (profiled)")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"worst": worst, "timings": timings}
+
+
 def two_streams_agree(gam_stats, rounds: list, what: str = "3 kernels") -> bool:
     """Kernel A over each round's inputs on two streams at once, alternating,
     against serial calls: the same bits, and every stream's tickets back at
@@ -2043,6 +2317,163 @@ def phase_sn(dev, card: str, tmp: str) -> dict:
     log("6b sn", f"phase {time.time() - t_phase:.1f} s")
     del step, state
     return {"sn_train": train_counts, "sn_test": test_counts}
+
+
+def phase_norm_cli(dev, card: str, tmp: str) -> None:
+    """Train-mode norm layers through the CLI (``--g_norm_fun InstanceNorm
+    --d_norm_fun BatchNorm``, the configuration of the cell g32inbn_train256)
+    at the default width (cd 32, dd 32, 256 px crops of 512, B=10, bf16):
+
+    - ``--mode train`` through uegan_tpu_torch.cli.run on a synthetic FiveK
+      layout of 20 pairs (2 steps and a validation batch, NIMA off): the
+      norm calls counted (portbench/counts/norm_layers.py's 43 forward and
+      38 backward a step; the validation's eval-mode norms make none), the
+      running statistics of G's 9 and D's 5 norm layers in the .pth, moved;
+    - a resume from that .pth for a second epoch: the loaded state holds
+      its running statistics bit for bit, and 2 more steps run;
+    - ``--mode test --g_norm_fun InstanceNorm`` on the epoch-2 .pth and on
+      one of seeded weights with running statistics away from 0 and 1: the
+      canonical route (A 5, B 4, no norm call), PNGs >= 35 dB from the f32
+      plain canonical forward of the same weights and running statistics."""
+    import numpy as np
+    import torch
+
+    from portbench.counts import norm_layers
+    from uegan_tpu_torch import cli
+    from uegan_tpu_torch.models.generator import Generator
+    from uegan_tpu_torch.models.initializers import fan_in_normal_state
+    from uegan_tpu_torch.ops import norm_act as na
+    from uegan_tpu_torch.train import trainer as trainer_mod
+    from uegan_tpu_torch.utils.checkpoint import generator_state, load_pth
+    from uegan_tpu_torch.utils.image_io import normalize_u8, quantize_u8, read_png_rgb
+
+    t_phase = time.time()
+    per_forward = {**dict.fromkeys(KERNELS, 0), "gam_stats": 5, "upsample2x": 4}
+    fwd_list, bwd_list = norm_layers.launches(CD, CD, TRAIN_HW, TRAIN_B)
+    rng = np.random.default_rng(SEED + 30)
+    data = os.path.join(tmp, "fivek_norm")
+    write_pairs(os.path.join(data, "train"), ("exp", "raw"), 2 * TRAIN_B,
+                (2 * TRAIN_HW + 32, 2 * TRAIN_HW + 64), rng)
+    for part in ("val", "test"):
+        write_pairs(os.path.join(data, part), ("label", "raw"), 2, (IMG, IMG), rng)
+    root = os.path.join(tmp, "results_norm")
+    common = ["--save_root_dir", root, "--g_conv_dim", str(CD), "--d_conv_dim", str(CD),
+              "--g_norm_fun", "InstanceNorm", "--test_img_size", str(IMG),
+              "--val_batch_size", "2", "--is_test_nima", "false", "--is_test_psnr_ssim", "true",
+              "--compute_dtype", "bfloat16", "--num_workers", "8"]
+
+    def train(epochs: int, resume: int) -> dict:
+        na.norm_act.launches = na.norm_act_backward.launches = 0
+        reset_counts()
+        res = cli.run(["--mode", "train", "--d_norm_fun", "BatchNorm",
+                       "--train_img_dir", os.path.join(data, "train"),
+                       "--val_img_dir", os.path.join(data, "val"),
+                       "--val_label_dir", os.path.join(data, "val", "label") + os.sep,
+                       "--image_size", str(2 * TRAIN_HW), "--resize_size", str(TRAIN_HW),
+                       "--train_batch_size", str(TRAIN_B), "--pool_size", "50",
+                       "--total_epochs", str(epochs), "--num_epochs_start_val", "0",
+                       "--val_each_epochs", "1", "--info_step", "1", "--sample_step", "2",
+                       "--pretrained_model", str(resume)] + common)
+        torch.cuda.synchronize()
+        calls = (na.norm_act.launches, na.norm_act_backward.launches)
+        check_counts(f"--mode train with norms, epochs {resume} to {epochs} (2 steps and one "
+                     "validation batch)'s norm calls", calls, (2 * len(fwd_list),
+                                                              2 * len(bwd_list)))
+        if not all(math.isfinite(v) for v in res["last_losses"].values()):
+            raise AssertionError(f"--mode train with norms: {res}")
+        log("6c norm", f"python -m uegan_tpu_torch --mode train --g_norm_fun InstanceNorm "
+                       f"--d_norm_fun BatchNorm, epochs {resume} to {epochs}, cd {CD} dd {CD}, "
+                       f"{TRAIN_HW} px crops, B={TRAIN_B}, bf16: {res['steps']} steps in all, "
+                       f"last losses {res['last_losses']}; norm calls {calls}; launches "
+                       f"{counts()} [{card}]")
+        return res
+
+    def running(ckpt: dict) -> dict:
+        return {f"{net}.{k}": v for net in ("G_net", "D_net") for k, v in ckpt[net].items()
+                if k.endswith(("running_mean", "running_var"))}
+
+    models = os.path.join(root, "UEGAN-FiveK", "models")
+    train(1, 0)
+    first = running(load_pth(os.path.join(models, "UEGAN-FiveK_rahinge_1.pth")))
+    init = {k: 0.0 if k.endswith("mean") else 1.0 for k in first}
+    still = [k for k, v in first.items() if bool((v == init[k]).all())]
+    if len(first) != 2 * (9 + 5) or still or not all(bool(v.isfinite().all())
+                                                     for v in first.values()):
+        raise AssertionError(f"epoch 1's .pth: running statistics {sorted(first)}, unmoved "
+                             f"{still}")
+
+    restored = {}
+    real_load = trainer_mod.load_checkpoint
+
+    def load_and_keep(state, loaded):
+        real_load(state, loaded)
+        for net, m in (("G_net", state.g), ("D_net", state.d)):
+            restored.update({f"{net}.{k}": v.detach().cpu().clone()
+                             for k, v in m.state_dict().items()})
+    trainer_mod.load_checkpoint = load_and_keep
+    try:
+        res = train(2, 1)
+    finally:
+        trainer_mod.load_checkpoint = real_load
+    unequal = [k for k, v in first.items() if not torch.equal(restored[k], v.cpu())]
+    if res["steps"] != 4 or unequal:
+        raise AssertionError(f"the resume: {res['steps']} steps; running statistics not "
+                             f"restored bit for bit: {unequal}")
+    second = running(load_pth(os.path.join(models, "UEGAN-FiveK_rahinge_2.pth")))
+    moved = max(float((second[k].float() - v.float()).abs().max()) for k, v in first.items())
+    log("6c norm", f"resume from epoch 1: {len(first)} running statistics restored bit for "
+                   f"bit; epoch 2 moved them by up to {moved:.3e}")
+
+    # --mode test on the trainer's epoch-2 .pth, and on a reference-format
+    # .pth (epoch 3) of N(0, 1/fan_in) weights, norm weights about 1 and
+    # running statistics away from 0 and 1, so that the output is of order
+    # one away from the input and depends on the running statistics
+    seeded = {k: torch.from_numpy(v) for k, v in fan_in_normal_state(
+        Generator(conv_dim=CD, norm_fun="InstanceNorm"), SEED + 31).items()}
+    for k in seeded:
+        if k.endswith(".main.2.weight"):
+            seeded[k] += 1.0
+    torch.save({"G_net": seeded, "D_net": {}, "epoch": 3.0, "g_optimizer": {},
+                "d_optimizer": {}, "lr_scheduler_g": {}, "lr_scheduler_d": {}},
+               os.path.join(models, "UEGAN-FiveK_rahinge_3.pth"))
+    test_dir = os.path.join(data, "test")
+    out_dir = os.path.join(root, "UEGAN-FiveK", "test", "test_results")
+    names = sorted(n[:-len(".png")] for n in os.listdir(os.path.join(test_dir, "raw")))
+    raw = np.stack([read_png_rgb(os.path.join(test_dir, "raw", n + ".png")) for n in names])
+    for epoch in (2, 3):
+        na.norm_act.launches = 0
+        reset_counts()
+        res = cli.run(["--mode", "test", "--test_img_dir", test_dir, "--test_label_dir",
+                       os.path.join(test_dir, "label") + os.sep, "--pretrained_model",
+                       str(epoch)] + common)
+        torch.cuda.synchronize()
+        launched, pads = counts(), pad_counts()
+        check_counts(f"--mode test --g_norm_fun InstanceNorm, epoch {epoch} (one batch: the "
+                     "canonical route)", (launched, pads, na.norm_act.launches),
+                     (per_forward, PAD_LAUNCHES["canonical"], 0))
+        got = np.stack([read_png_rgb(os.path.join(out_dir, f"{n}_{epoch}.00_testFakeExp.png"))
+                        for n in names])
+        g32 = Generator(conv_dim=CD, norm_fun="InstanceNorm")
+        g32.load_state_dict(generator_state(
+            load_pth(os.path.join(models, f"UEGAN-FiveK_rahinge_{epoch}.pth")), ema=True))
+        g32 = g32.to(dev).eval()
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.inference_mode(), plain_versions():
+            ref = quantize_u8(g32(normalize_u8(torch.from_numpy(raw).to(dev)))).cpu().numpy()
+        torch.backends.cudnn.allow_tf32 = True
+        diff = np.abs(got.astype(np.float64) - ref)
+        psnr = 10 * math.log10(255.0 ** 2 / max(float((diff ** 2).mean()), 1e-12))
+        moved = float(np.abs(ref.astype(np.float64) - raw).mean())
+        what = "the trainer's" if epoch == 2 else "seeded N(0, 1/fan_in)"
+        log("6c norm", f"--mode test --g_norm_fun InstanceNorm on {what} "
+                       f"UEGAN-FiveK_rahinge_{epoch}.pth: {res['n_images']} PNGs {IMG}x{IMG}, "
+                       f"PSNR {res['psnr']:.4f} dB vs labels; launches {launched}; vs the f32 "
+                       f"plain canonical forward: PSNR {psnr:.2f} dB (limit >= 35), max |du8| "
+                       f"{int(diff.max())}; mean |output - input| {moved:.2f} gray levels")
+        if psnr < 35.0 or res["n_images"] != 2:
+            raise AssertionError(f"--mode test --g_norm_fun InstanceNorm, epoch {epoch}: "
+                                 f"{psnr:.2f} dB, {res}")
+    log("6c norm", f"phase {time.time() - t_phase:.1f} s")
 
 
 def phase_timing(dev, card: str) -> dict:
@@ -3535,7 +3966,8 @@ def main() -> int:
         log("2 build", line)
     for key in ("Int8Epilogue", "FloatEpilogue", "gam_stats_kernel", "s2d_convert_kernel",
                 "gam_stats_bwd_kernel", "upsample2x_bwd_kernel", "reflection_pad_nhwc_kernel",
-                "reflection_pad_nhwc_bwd_kernel"):
+                "reflection_pad_nhwc_bwd_kernel", "norm_act_nhwc_stats_kernel",
+                "norm_act_nhwc_bwd_apply_kernel"):
         if not any(key in line for line in ptxas):
             raise AssertionError(f"ptxas's report names no {key} kernel")
 
@@ -3550,6 +3982,7 @@ def main() -> int:
         launches = phase_end_to_end(dev, tmp)
         launches["train"] = phase_train(dev, card, tmp)["launches"]
         launches.update(phase_sn(dev, card, tmp))
+        phase_norm_cli(dev, card, tmp)
     timing = phase_timing(dev, card)
     phase_profile(dev, card)
     with tempfile.TemporaryDirectory(prefix="uegan_smoke_nima_") as tmp:
@@ -3560,6 +3993,7 @@ def main() -> int:
         launches.update(phase_serve(dev, card, tmp))
     with tempfile.TemporaryDirectory(prefix="uegan_smoke_export_") as tmp:
         launches.update(phase_export(dev, card, tmp))
+    norm = phase_norm(dev, card)
 
     src = {"gam_stats": ("uegan_tpu_torch/csrc/gam_stats.cu",
                          "uegan_tpu/ops/pallas/gam_stats.py:66"),
@@ -3607,6 +4041,13 @@ def main() -> int:
         "bound_ms": pad["enhance"]["fwd"]["bound"], "bound_by": "bytes",
         "per": f"packed forward, {IMG} px B={PAD_B}", "train": pad["train"], "sn": pad["sn"],
         "device_time": sorted(DEVICE_METHODS),
+    })
+    kernels.append({
+        "name": "norm_act", "route": "cuda", "source": "uegan_tpu_torch/csrc/norm_act.cu",
+        "replaces": "none (JAX's NormLayer in train mode and the LeakyReLU, which XLA fuses)",
+        "launches_a_step": norm["timings"]["step"]["launches"], "max_abs_err": norm["worst"],
+        "timings": {k: v for k, v in norm["timings"].items() if k != "step"},
+        "step": {k: v for k, v in norm["timings"]["step"].items() if k != "launches"},
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

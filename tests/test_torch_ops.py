@@ -331,9 +331,9 @@ def test_cpu_dispatch_and_refusals():
 
 
 # options the port raises for, naming the ROADMAP item that ports them; the
-# high-resolution options (tiles, native resolution, a forced strip height)
-# and spectral norm in the generator are ported and pass
-OUTSIDE_THE_PORT = {"g_norm_fun", "mesh_spatial"}
+# high-resolution options (tiles, native resolution, a forced strip height),
+# spectral norm in the generator and train-mode norm layers are ported and pass
+OUTSIDE_THE_PORT = {"mesh_spatial"}
 
 
 @pytest.mark.parametrize("flags", [
@@ -341,7 +341,7 @@ OUTSIDE_THE_PORT = {"g_norm_fun", "mesh_spatial"}
     {"mesh_spatial": 2},
     {"test_keep_aspect": True}, {"quantized_inference": "int8", "strip_rows": 8},
     {"quantized_inference": "int8_pallas", "tile_size": 512}, {"g_use_sn": True},
-    {"strip_rows": 8},
+    {"strip_rows": 8}, {"mode": "train", "d_norm_fun": "BatchNorm"},
 ])
 def test_options_outside_the_slice_raise(flags):
     from uegan_tpu_torch.cli import check_supported
@@ -380,14 +380,21 @@ def test_config_equals_jax_field_by_field(argv):
         get_config(["--quantized_inference", "int4"])
 
 
-@pytest.mark.parametrize("norm_fun, use_sn", [("none", False), ("BatchNorm", False),
-                                               ("none", True)],
-                         ids=["none", "BatchNorm", "use_sn"])
-def test_bridge_round_trip_is_bit_exact(norm_fun, use_sn):
+@pytest.mark.parametrize("norm_fun, use_sn, d_norm", [("none", False, "none"),
+                                                       ("BatchNorm", False, "none"),
+                                                       ("none", True, "none"),
+                                                       ("InstanceNorm", False, "BatchNorm")],
+                         ids=["none", "BatchNorm", "use_sn", "d_BatchNorm"])
+def test_bridge_round_trip_is_bit_exact(norm_fun, use_sn, d_norm):
     """numpy state dict -> flax tree (import_generator) -> torch state dict
     (from_flax) gives back the same bits, under names the port's Generator
     loads strictly; with spectral norm the kernels, u and v go through the
-    ``spectral`` tree."""
+    ``spectral`` tree; a discriminator with norm layers goes through
+    import_discriminator and back with its ``batch_stats`` (``d{i}.0.2.*``)."""
+    from uegan_tpu.convert.torch_import import import_discriminator
+    from uegan_tpu_torch.convert.from_flax import discriminator_state_dict
+    from uegan_tpu_torch.models.discriminator import Discriminator
+
     g = Generator(conv_dim=8, norm_fun=norm_fun, use_sn=use_sn)
     sd = fan_in_normal_state(g, seed=5)
     variables = import_generator(sd, use_sn=use_sn)
@@ -398,6 +405,16 @@ def test_bridge_round_trip_is_bit_exact(norm_fun, use_sn):
         assert back[k].dtype == torch.float32
         np.testing.assert_array_equal(back[k].numpy(), v, err_msg=k)
     g.load_state_dict(back, strict=True)
+    if d_norm != "none":
+        d = Discriminator(conv_dim=8, norm_fun=d_norm)
+        dsd = fan_in_normal_state(d, seed=6)
+        dvars = import_discriminator(dsd, use_sn=True)
+        assert sorted(dvars["batch_stats"]) == [f"d{i}" for i in range(1, 6)]
+        dback = discriminator_state_dict(dvars)
+        assert sorted(dback) == sorted(dsd) and "d3.0.2.running_var" in dback
+        for k, v in dsd.items():
+            np.testing.assert_array_equal(dback[k].numpy(), v, err_msg=k)
+        d.load_state_dict(dback, strict=True)
 
 
 def test_port_imports_no_jax():

@@ -1,6 +1,7 @@
 """PyTorch port, train slice: ``python -m uegan_tpu_torch --mode train`` on
 the vendored fixture with the verify flags (cd 8, 32 px, batch 2, 2
-epochs) on the CPU, a resume from its checkpoint, and the ``.pth`` it writes
+epochs) on the CPU, with and without train-mode norm layers (instance norm
+in G, batch norm in D), a resume from its checkpoint, and the ``.pth`` it writes
 read back by the port's ``--mode test`` and by the JAX Tester's ``.pth``
 reader (uegan_tpu.convert.torch_import.import_uegan_checkpoint), whose
 generator forward gives the same PNGs."""
@@ -34,8 +35,10 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _train_argv(root: str, epochs: int, resume: int = 0) -> list:
-    return ["--mode", "train", "--train_img_dir", os.path.join(FIXTURE, "train"),
+def _train_argv(root: str, epochs: int, resume: int = 0,
+                norms: tuple = ("none", "none")) -> list:
+    return ["--mode", "train", "--g_norm_fun", norms[0], "--d_norm_fun", norms[1],
+            "--train_img_dir", os.path.join(FIXTURE, "train"),
             "--val_img_dir", os.path.join(FIXTURE, "val"),
             "--val_label_dir", os.path.join(FIXTURE, "val", "label") + os.sep,
             "--save_root_dir", root, "--g_conv_dim", "8", "--d_conv_dim", "8",
@@ -47,12 +50,20 @@ def _train_argv(root: str, epochs: int, resume: int = 0) -> list:
             "--pretrained_model", str(resume)]
 
 
-def test_cli_train_then_test_and_jax_reads_the_pth(tmp_path, monkeypatch, capsys):
+@pytest.mark.parametrize("norms", [("none", "none"), ("InstanceNorm", "BatchNorm")],
+                         ids=lambda n: n[0] if n[0] == "none" else "g_in_d_bn")
+def test_cli_train_then_test_and_jax_reads_the_pth(tmp_path, monkeypatch, capsys, norms):
+    """The default configuration, and train-mode norm layers in G and D
+    (the running statistics in the ``.pth``, restored bit-equal by a resume,
+    a reference ``.pth`` with ``num_batches_tracked`` loaded; ``--mode
+    test`` normalizes with them on the canonical route, as JAX's generator
+    in eval mode does)."""
     from uegan_tpu_torch import cli
+    from uegan_tpu_torch.train import trainer as trainer_mod
 
     monkeypatch.setenv("UEGAN_TORCH_DEVICE", "cpu")
     root = str(tmp_path / "results")
-    res = cli.run(_train_argv(root, 2))
+    res = cli.run(_train_argv(root, 2, norms=norms))
     out = capsys.readouterr().out
     assert res["steps"] == 4
     assert out.count("D/Total:") == 4 and "Avg. PSNR" in out
@@ -69,14 +80,43 @@ def test_cli_train_then_test_and_jax_reads_the_pth(tmp_path, monkeypatch, capsys
                 "ssim_val_results/SSIM_total_results_epoch_avgssim.csv"):
         assert open(os.path.join(root, csv)).read().splitlines()[-1].startswith("Best epoch: ")
 
-    # resume at epoch 2 (step 4) for one more epoch
-    res = cli.run(_train_argv(root, 3, resume=2))
+    stats = [k for k in ckpt["G_net"] if k.endswith(("running_mean", "running_var"))]
+    assert len(stats) == (18 if norms[0] != "none" else 0)
+    assert len([k for k in ckpt["D_net"] if k.endswith("running_var")]) == (
+        5 if norms[1] != "none" else 0)
+
+    # resume at epoch 2 (step 4) for one more epoch; the loaded state holds
+    # the checkpoint's running statistics bit for bit
+    restored = {}
+    real_load = trainer_mod.load_checkpoint
+
+    def load_and_keep(state, loaded):
+        real_load(state, loaded)
+        restored.update({f"G_net.{k}": v.clone() for k, v in state.g.state_dict().items()})
+        restored.update({f"D_net.{k}": v.clone() for k, v in state.d.state_dict().items()})
+    monkeypatch.setattr(trainer_mod, "load_checkpoint", load_and_keep)
+    res = cli.run(_train_argv(root, 3, resume=2, norms=norms))
     assert res["steps"] == 6
     assert "loaded trained models (epochs: 2.0)" in capsys.readouterr().out
+    for net in ("G_net", "D_net"):
+        for k, v in ckpt[net].items():
+            if k.endswith(("running_mean", "running_var")):
+                assert torch.equal(restored[f"{net}.{k}"], v), k
+    if norms[0] != "none":  # a reference .pth keeps torch's num_batches_tracked beside them
+        from uegan_tpu_torch.config import get_config
+        from uegan_tpu_torch.train.state import create_train_state, load_checkpoint
+
+        state = create_train_state(get_config(_train_argv(root, 2, norms=norms)), "cpu",
+                                   (32, 32), 2)
+        ref = {**ckpt, "G_net": dict(ckpt["G_net"]), "D_net": dict(ckpt["D_net"])}
+        ref["G_net"]["enc1.main.2.num_batches_tracked"] = torch.tensor(4)
+        ref["D_net"]["d1.0.2.num_batches_tracked"] = torch.tensor(20)
+        load_checkpoint(state, ref)
+        assert torch.equal(state.d.d1[0][2].running_var, ckpt["D_net"]["d1.0.2.running_var"])
 
     # the port's --mode test reads the epoch-2 checkpoint
     test_dir = os.path.join(FIXTURE, "test")
-    cli.run(["--mode", "test", "--test_img_dir", test_dir,
+    cli.run(["--mode", "test", "--g_norm_fun", norms[0], "--test_img_dir", test_dir,
              "--test_label_dir", os.path.join(test_dir, "label") + os.sep,
              "--save_root_dir", root, "--g_conv_dim", "8", "--test_img_size", "32",
              "--val_batch_size", "2", "--pretrained_model", "2", "--compute_dtype", "float32",
@@ -88,10 +128,9 @@ def test_cli_train_then_test_and_jax_reads_the_pth(tmp_path, monkeypatch, capsys
     assert conv["epoch"] == 2.0 and "spectral" in conv["d_vars"]
     batch = next(iter(get_test_loader(test_dir, img_size=32, batch_size=2, num_workers=1,
                                       process_id=0, process_count=1, emit="uint8")))
-    fwd = jax.jit(lambda p, x: JaxGenerator(conv_dim=8).apply(
-        {"params": p}, device_normalize(x), train=False, update_sn=False))
-    want = np.asarray(device_quantize_u8(fwd(conv["g_vars"]["params"],
-                                             jnp.asarray(batch["img_raw"]))))
+    fwd = jax.jit(lambda v, x: JaxGenerator(conv_dim=8, norm_fun=norms[0]).apply(
+        v, device_normalize(x), train=False, update_sn=False))
+    want = np.asarray(device_quantize_u8(fwd(conv["g_vars"], jnp.asarray(batch["img_raw"]))))
     for i, name in enumerate(batch["img_name"]):
         got = read_png_rgb(os.path.join(out_dir, f"{name}_2.00_testFakeExp.png"))
         assert np.abs(got.astype(np.int16) - want[i].astype(np.int16)).max() <= 1, name

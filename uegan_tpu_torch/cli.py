@@ -42,9 +42,6 @@ def check_supported(args: Config) -> None:
             raise NotImplementedError(why)
     if args.mode == "train":
         train_unsupported = [
-            (args.g_norm_fun != "none" or args.d_norm_fun != "none",
-             "--g_norm_fun / --d_norm_fun other than none: train-mode normalization is ROADMAP "
-             "queue 1 item 3"),
             (args.optimizer_type != "adam", "--optimizer_type rmsprop: not ported (optax adds "
                                             "eps inside the root, torch outside it)"),
             (args.use_tensorboard, "--use_tensorboard true: TensorBoard logging is not ported"),

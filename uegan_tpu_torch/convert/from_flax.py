@@ -5,7 +5,7 @@ from HWIO to OIHW, norm ``scale``/``bias`` become ``weight``/``bias`` and
 the ``batch_stats`` ``mean``/``var`` become ``running_mean``/
 ``running_var``; under ``--g_use_sn`` a spectrally normalized kernel
 becomes ``weight_orig``, its ``spectral`` ``u``/``v`` ``weight_u``/
-``weight_v``), ``import_discriminator`` (the same spectral-norm names),
+``weight_v``), ``import_discriminator`` (the same spectral-norm and norm names),
 ``import_vgg19`` (``conv{s}_{i}_kernel`` becomes torchvision's
 ``features.{idx}.weight``) and ``import_nima`` (the
 MobileNetV2 trunk's ``base/{stem,block{i}/{pw,dw,pw_linear},head_conv}``
@@ -42,6 +42,22 @@ def _oihw(kernel) -> torch.Tensor:
     return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
 
 
+def _norm_into(sd: Dict[str, torch.Tensor], params, stats, path: Tuple[str, ...],
+               prefix: str) -> None:
+    """A NormLayer's ``scale``/``bias`` and its ``batch_stats`` ``mean``/``var``
+    at ``path``, where the tree has one, as ``prefix.weight``, ``.bias``,
+    ``.running_mean`` and ``.running_var``."""
+    node = _node(params, path)
+    if node is None:
+        return
+    sd[f"{prefix}.weight"] = _t(node["scale"])
+    sd[f"{prefix}.bias"] = _t(node["bias"])
+    rs = _node(stats, path)
+    if rs is not None:
+        sd[f"{prefix}.running_mean"] = _t(rs["mean"])
+        sd[f"{prefix}.running_var"] = _t(rs["var"])
+
+
 def generator_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``{"params": ..., ["batch_stats": ...], ["spectral": ...]}`` of
     :class:`uegan_tpu.models.generator.Generator` -> state dict for
@@ -67,24 +83,13 @@ def generator_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         if "bias" in node:
             sd[f"{prefix}.bias"] = _t(node["bias"])
 
-    def norm(path: Tuple[str, ...], prefix: str) -> None:
-        node = _node(params, path)
-        if node is None:
-            return
-        sd[f"{prefix}.weight"] = _t(node["scale"])
-        sd[f"{prefix}.bias"] = _t(node["bias"])
-        rs = _node(stats, path)
-        if rs is not None:
-            sd[f"{prefix}.running_mean"] = _t(rs["mean"])
-            sd[f"{prefix}.running_var"] = _t(rs["var"])
-
     for i in range(1, 6):
         conv((f"enc{i}", "conv"), f"enc{i}.main.1")
-        norm((f"enc{i}", "norm"), f"enc{i}.main.2")
+        _norm_into(sd, params, stats, (f"enc{i}", "norm"), f"enc{i}.main.2")
     for i in range(1, 5):
         conv((f"upsample{i}",), f"upsample{i}.1.main.1")
         conv((f"dec{i}", "conv"), f"dec{i}.main.1")
-        norm((f"dec{i}", "norm"), f"dec{i}.main.2")
+        _norm_into(sd, params, stats, (f"dec{i}", "norm"), f"dec{i}.main.2")
     conv(("dec5_0",), "dec5.0.main.1")
     conv(("dec5_1",), "dec5.1.main.1")
     for i in range(1, 6):
@@ -95,9 +100,11 @@ def generator_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def discriminator_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """``{"params": ..., ["spectral": ...]}`` of :class:`uegan_tpu.models.
-    discriminator.Discriminator` -> state dict for ``uegan_tpu_torch``'s."""
+    """``{"params": ..., ["batch_stats": ...], ["spectral": ...]}`` of
+    :class:`uegan_tpu.models.discriminator.Discriminator` -> state dict for
+    ``uegan_tpu_torch``'s; a stage's norm layer becomes ``d{i}.0.2.*``."""
     params = variables["params"]
+    stats = variables.get("batch_stats", {})
     spectral = variables.get("spectral", {})
     sd: Dict[str, torch.Tensor] = {}
     for i in range(1, 6):
@@ -112,9 +119,7 @@ def discriminator_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tenso
         else:
             sd[f"d{i}.0.1.weight"] = _oihw(node["kernel"])
         sd[f"d{i}.0.1.bias"] = _t(node["bias"])
-        if _node(params, (f"d{i}", "norm")) is not None:
-            raise NotImplementedError("discriminator norm layers are not ported yet "
-                                      "(ROADMAP queue 1 item 3)")
+        _norm_into(sd, params, stats, (f"d{i}", "norm"), f"d{i}.0.2")
         sd[f"d{i}_pred.0.1.weight"] = _oihw(params[f"d{i}_pred"]["conv"]["kernel"])
     return sd
 

@@ -37,7 +37,7 @@
 //   blocks an SM, or 12 and 16 loads, were slower on the card; PERF.md).
 //   Sums are f32 in registers.
 // - The block adds its threads' sums in shared memory in a fixed order and
-//   writes them to an (N, splits, 2, C) f32 scratch.
+//   writes them to an (N, splits, 2, C) f32 scratch (fixed_sum.cuh).
 // - The last block of (n, t) to finish, told by an integer ticket (one
 //   acquire-release add per block), adds the splits' partials in split
 //   order, writes mean and std, and resets the ticket to 0, so the counters
@@ -47,75 +47,12 @@
 //   memory instead, but caps an image at 8 blocks (16 non-portable), which
 //   leaves most of the card idle at batch 1.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fixed_sum.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kUnroll = 8;       // pixels a thread loads before it adds them
 constexpr int kBlocksPerSM = 2;  // the grid is one wave of 2 blocks an SM (128 registers)
-
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
-  T v[V];
-};
-
-// One word of x.  A 16-byte word is read past L1 (each is read once) with an
-// L2 prefetch of the 256-byte sector around it, which the thread's
-// neighbours read next.
-template <typename P>
-__device__ __forceinline__ P load_once(const P* p) {
-  if constexpr (sizeof(P) == 16) {
-    int4 r;
-    asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.s32 {%0, %1, %2, %3}, [%4];"
-                 : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-                 : "l"(p));
-    return *reinterpret_cast<P*>(&r);
-  } else {
-    return *p;
-  }
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// Column sums of a [rows][cols] matrix of (s1, s2) pairs, in a fixed order,
-// with all the block's threads: lane l of `lanes` adds rows l, l + lanes, ...
-// in order and leaves its sum in row l of sh (rows l >= lanes are read only
-// by their own lane); then column j's sum is lanes 0, 1, ... in order, handed
-// to emit(j, s1, s2) by one thread.  get(r, j) reads the matrix.
-template <int kMaxFloats, typename Get, typename Emit>
-__device__ __forceinline__ void column_sums(float (&sh)[2][kMaxFloats], int rows, int cols,
-                                            Get get, Emit emit) {
-  const int lanes = max(1, min(rows, kThreads / cols));
-  for (int idx = threadIdx.x; idx < lanes * cols; idx += kThreads) {
-    const int j = idx % cols, l = idx / cols;
-    float a = 0.f, b = 0.f;
-#pragma unroll 8
-    for (int r = l; r < rows; r += lanes) {
-      const float2 v = get(r, j);
-      a += v.x;
-      b += v.y;
-    }
-    sh[0][l * cols + j] = a;
-    sh[1][l * cols + j] = b;
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < cols; j += kThreads) {
-    float a = 0.f, b = 0.f;
-    for (int l = 0; l < lanes; ++l) {
-      a += sh[0][l * cols + j];
-      b += sh[1][l * cols + j];
-    }
-    emit(j, a, b);
-  }
-}
 
 // grid (splits, channel tiles, n); a tile is gt groups of V channels, and
 // its threads run rows = kThreads / gt pixels side by side
@@ -126,8 +63,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
                      float* __restrict__ mean32, float* __restrict__ var32, int64_t hw, int c,
                      int gt, int64_t chunk, float eps) {
   __shared__ float sh[2][kThreads * V];
-  __shared__ bool is_last;
-  const int split = blockIdx.x, splits = gridDim.x, tile = blockIdx.y, n = blockIdx.z;
+  const int split = blockIdx.x, tile = blockIdx.y, n = blockIdx.z;
   const int rows = kThreads / gt;
   const int g = threadIdx.x % gt, r = threadIdx.x / gt;
   const int c0 = tile * gt * V;          // the tile's first channel
@@ -168,66 +104,23 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
       }
     }
   }
-  // thread (r, g) holds row r, columns g*V .. g*V + V - 1 of a [rows][width]
-  // matrix; it is read from a copy, since column_sums writes sh in place
-  float* mine1 = &sh[0][threadIdx.x * V];
-  float* mine2 = &sh[1][threadIdx.x * V];
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    mine1[k] = s1[k];
-    mine2[k] = s2[k];
-  }
-  __syncthreads();
-  float* out = part + ((int64_t)n * splits + split) * 2 * c + c0;
-  column_sums(
-      sh, rows, width,
-      [&](int rr, int j) { return make_float2(sh[0][rr * width + j], sh[1][rr * width + j]); },
-      [&](int j, float a, float b) {
-        if (j < cb) {
-          out[j] = a;
-          out[c + j] = b;
-        }
-      });
-  // take a ticket: thread 0's add releases the block's partials (the
-  // barrier orders every thread's writes before it) and acquires the other
-  // blocks' (the barrier after it orders every thread's reads); the last
-  // block of (n, tile) combines every split's partials
-  __syncthreads();
-  unsigned* tk = ticket + (int64_t)n * gridDim.y + tile;
-  if (threadIdx.x == 0) {
-    unsigned before;
-    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
-                 : "=r"(before)
-                 : "l"(tk)
-                 : "memory");
-    is_last = before == (unsigned)(splits - 1);
-  }
-  __syncthreads();
-  if (!is_last) return;
-  const float* all = part + (int64_t)n * splits * 2 * c + c0;
   const float fhw = (float)hw;
-  column_sums(
-      sh, splits, cb,
-      [&](int s, int j) {
-        const float* p = all + (int64_t)s * 2 * c + j;
-        return make_float2(__ldcg(p), __ldcg(p + c));
-      },
-      [&](int j, float a, float b) {
-        const float m = a / fhw;
-        // rounded multiplies, no fma contraction: s2 - hw*m^2 cancels, and
-        // an fma would turn a zero variance (hw = 1, or a constant map) into
-        // +-1 ulp of s2
-        const float hmm = __fmul_rn(__fmul_rn(fhw, m), m);
-        const float var = (b - hmm) / (float)(hw > 1 ? hw - 1 : 1);
-        const int64_t at = (int64_t)n * c + c0 + j;
-        store_f32(mean + at, m);
-        store_f32(std + at, sqrtf(fmaxf(var, 0.f) + eps));
-        if (mean32 != nullptr) {
-          mean32[at] = m;
-          var32[at] = var;
-        }
-      });
-  if (threadIdx.x == 0) *tk = 0u;
+  combine_splits<V>(sh, s1, s2, part, ticket, c, n, split, tile, rows, c0, width, cb,
+                    [&](int j, float a, float b) {
+    const float m = a / fhw;
+    // rounded multiplies, no fma contraction: s2 - hw*m^2 cancels, and
+    // an fma would turn a zero variance (hw = 1, or a constant map) into
+    // +-1 ulp of s2
+    const float hmm = __fmul_rn(__fmul_rn(fhw, m), m);
+    const float var = (b - hmm) / (float)(hw > 1 ? hw - 1 : 1);
+    const int64_t at = (int64_t)n * c + c0 + j;
+    mean[at] = from_f32<T>(m);
+    std[at] = from_f32<T>(sqrtf(fmaxf(var, 0.f) + eps));
+    if (mean32 != nullptr) {
+      mean32[at] = m;
+      var32[at] = var;
+    }
+  });
 }
 
 template <typename T, int V>

@@ -33,62 +33,12 @@
 // prefetch.global.L2 of the next step's words, with plain stores, and with
 // 12 or 16 loads a step (PERF.md).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fixed_sum.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kUnroll = 8;       // pixels a thread loads before it works on them
 constexpr int kBlocksPerSM = 2;  // as kernel A: the plan's grid is one wave of 2 an SM
-
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
-  T v[V];
-};
-
-// One word of x, read once: a 16-byte word past L1 with an L2 prefetch of
-// the 256-byte sector around it, which the thread's neighbours read next.
-template <typename P>
-__device__ __forceinline__ P load_once(const P* p) {
-  if constexpr (sizeof(P) == 16) {
-    int4 r;
-    asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.s32 {%0, %1, %2, %3}, [%4];"
-                 : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-                 : "l"(p));
-    return *reinterpret_cast<P*>(&r);
-  } else {
-    return *p;
-  }
-}
-
-// One word of dx, written once and not read again by this kernel: a
-// 16-byte word with the streaming (evict-first) hint.
-template <typename P>
-__device__ __forceinline__ void store_once(P* p, const P& v) {
-  if constexpr (sizeof(P) == 16) {
-    const int4 r = *reinterpret_cast<const int4*>(&v);
-    asm volatile("st.global.cs.v4.s32 [%0], {%1, %2, %3, %4};" ::"l"(p), "r"(r.x), "r"(r.y),
-                 "r"(r.z), "r"(r.w)
-                 : "memory");
-  } else {
-    *p = v;
-  }
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // grid (splits, channel tiles, n); a tile is gt groups of V channels, and
 // its threads run rows = kThreads / gt pixels side by side

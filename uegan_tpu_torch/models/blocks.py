@@ -24,7 +24,7 @@ excite convs or the ``dec5`` head.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +32,7 @@ from torch import nn
 
 from uegan_tpu_torch.ops.conv import conv2d_reflect
 from uegan_tpu_torch.ops.gam_stats import gam_mean_std
+from uegan_tpu_torch.ops.norm_act import norm_act
 from uegan_tpu_torch.ops.norms import instance_norm
 from uegan_tpu_torch.ops.spectral_norm import spectral_sigmas
 
@@ -48,6 +49,21 @@ def get_act_fun(act_fun_type: str = "LeakyReLU") -> Callable[[torch.Tensor], tor
     if act_fun_type == "none":
         return lambda x: x
     raise NotImplementedError(f"activation function [{act_fun_type}] is not found")
+
+
+def leaky_slope(act_fun_type: str) -> Optional[float]:
+    """The negative slope that a norm layer folds in for ``act_fun_type``:
+    0.2 for LeakyReLU, None for any other activation (which runs after it)."""
+    return 0.2 if act_fun_type == "LeakyReLU" else None
+
+
+def norm_then_act(norm: "NormLayer", y: torch.Tensor, slope: Optional[float],
+                  act: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """A block's norm and activation: one call where the activation is a
+    LeakyReLU, else the norm and then ``act``."""
+    if slope is not None:
+        return norm(y, slope)
+    return act(norm(y))
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -153,29 +169,37 @@ class SNConv(nn.Module):
 
 
 class NormLayer(nn.Module):
-    """BatchNorm / InstanceNorm (affine, running statistics) in eval mode
-    (reference models.py:272-281): normalizes with the running statistics,
-    in f32, eps 1e-5."""
+    """BatchNorm / InstanceNorm with an affine weight and bias and running
+    statistics (reference models.py:272-281, ``affine=True,
+    track_running_stats=True``), as JAX's NormLayer: in train mode each
+    call normalizes with its own statistics (per image and channel for
+    InstanceNorm, per channel over the batch for BatchNorm; the biased
+    variance, eps 1e-5) and updates the running statistics on the device
+    (momentum 0.1, the unbiased variance; under InstanceNorm the mean over
+    the images), through the norm_act kernels (ops/norm_act.py); in eval
+    mode it normalizes with the running statistics.  ``slope``: a LeakyReLU
+    that the caller's block applies next, folded into the call."""
 
     def __init__(self, kind: str, features: int, eps: float = 1e-5, device=None):
         super().__init__()
         if kind not in ("BatchNorm", "InstanceNorm"):
             raise NotImplementedError(f"normalization function [{kind}] is not found")
+        self.instance = kind == "InstanceNorm"
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, slope: Optional[float] = None) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "train-mode normalization (--g_norm_fun / --d_norm_fun other than none) is not "
-                "ported yet (ROADMAP queue 1 item 3)")
+            return norm_act(x, self.weight, self.bias, self.running_mean, self.running_var,
+                            self.instance, 1.0 if slope is None else slope, eps=self.eps)
         shape = (1, -1, 1, 1)
         y = (x.float() - self.running_mean.view(shape)) * torch.rsqrt(
             self.running_var.view(shape) + self.eps)
-        return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+        y = (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+        return y if slope is None else F.leaky_relu(y, slope)
 
 
 class ConvBlock(nn.Module):
@@ -194,36 +218,39 @@ class ConvBlock(nn.Module):
             layers.append(NormLayer(norm_fun, out_ch, device=device))
         self.main = nn.Sequential(*layers)
         self.act = get_act_fun(act_fun)
+        self.slope = leaky_slope(act_fun)
 
     def forward(self, x: ConvInput) -> torch.Tensor:
         """x (N, C, H, W), or the channel parts of the concat it reads."""
         y = run_conv(self.main[1], x, self.stride, self.dtype)
         if len(self.main) > 2:
-            y = self.main[2](y)
+            return norm_then_act(self.main[2], y, self.slope, self.act)
         return self.act(y)
 
 
 class DisConvBlock(nn.Sequential):
     """The discriminator's stage (reference models.py:158-167, the same
     structure as ConvBlock): index 0 the reflect pad, 1 the (spectrally
-    normalized) conv, 2 the norm when there is one; then the activation.
-    Train-mode norms are not ported (``--d_norm_fun none`` is the default)."""
+    normalized) conv, 2 the norm when there is one; then the activation."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 2,
                  norm_fun: str = "none", act_fun: str = "LeakyReLU", use_sn: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
+        layers = [nn.Identity(), SpectralConv2d(in_ch, out_ch, kernel_size, stride, bias=True,
+                                                use_sn=use_sn, device=device)]
         if norm_fun != "none":
-            raise NotImplementedError(
-                f"--d_norm_fun {norm_fun}: train-mode normalization in the discriminator is "
-                "not ported yet (ROADMAP queue 1 item 3)")
-        super().__init__(nn.Identity(), SpectralConv2d(in_ch, out_ch, kernel_size, stride,
-                                                       bias=True, use_sn=use_sn, device=device))
+            layers.append(NormLayer(norm_fun, out_ch, device=device))
+        super().__init__(*layers)
         self.dtype = dtype
         self.act = get_act_fun(act_fun)
+        self.slope = leaky_slope(act_fun)
 
     def forward(self, x: torch.Tensor, update_sn: bool = True,
                 sn_branches: int = 1) -> torch.Tensor:
-        return self.act(self[1](x, self.dtype, update_sn, sn_branches))
+        y = self[1](x, self.dtype, update_sn, sn_branches)
+        if len(self) > 2:
+            return norm_then_act(self[2], y, self.slope, self.act)
+        return self.act(y)
 
 
 class PredConvBlock(nn.Sequential):

@@ -82,12 +82,16 @@ def split_plan(n: int, hw: int, c: int, itemsize: int, address: int = 0) -> Plan
     return Plan(vec, groups, tiles, rows, -(-hw // chunk), chunk)
 
 
-def _ticket(device: torch.device, count: int) -> torch.Tensor:
-    """The current stream's zeroed counters on ``device``, at least ``count``;
-    the kernel leaves them zeroed, so they are allocated once per stream (and
-    again only to grow).  Calls on one stream run in its order, so they share
-    them safely; calls on two streams have two sets."""
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+def _ticket(device: torch.device, count: int, stream: Optional[int] = None) -> torch.Tensor:
+    """The current stream's zeroed counters on ``device``, at least ``count``
+    (``stream``: its raw handle, when the caller has it); the kernels
+    (fixed_sum.cuh: this one and norm_act's) leave them zeroed, so they are
+    allocated once per stream (and again only to grow).  Calls on one stream
+    run in its order, so they share them safely; calls on two streams have
+    two sets."""
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
     t = _tickets.get(key)
     if t is None or t.numel() < count:
         t = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)

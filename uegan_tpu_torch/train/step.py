@@ -3,17 +3,20 @@ uegan_tpu/train/step.py:make_train_step and make_eval_step.
 
 One step, in the reference's order (reference trainer.py:75-119):
 
-1. ``fuse_g`` (G without spectral norm): one G forward on cat[raw, exp];
-   its raw half is the fake image, kept with its autograd graph for the G
-   update, and its exp half the identity output.  Under ``--g_use_sn``,
-   G(raw) alone (G's u and v advance once);
+1. ``fuse_g`` (G without spectral norm or norm layers): one G forward on
+   cat[raw, exp]; its raw half is the fake image, kept with its autograd
+   graph for the G update, and its exp half the identity output.  Under
+   ``--g_use_sn`` or a ``--g_norm_fun``, G(raw) alone (G's u and v advance
+   once; its norm layers take G(raw)'s statistics);
 2. the pool query on the detached fake;
 3. the D update: one fused D forward over [exp, store, raw] with
    ``sn_branches=3`` (each branch scaled by the sigma of its own power
-   iteration), rahinge sums, backward into D only, Adam on D;
-4. the G update against the updated D: under ``--g_use_sn`` first the
-   identity output G(exp), a second forward (G's u and v advance a second
-   time, after the raw forward's, as in JAX); with ``split_g_adv`` (the
+   iteration), rahinge sums, backward into D only, Adam on D.  Under a
+   ``--d_norm_fun`` (``fuse_d`` off) three D forwards, each normalized
+   with its own batch's statistics and each updating the running ones;
+4. the G update against the updated D: unfused, first the identity output
+   G(exp), a second forward (G's u and v advance a second time, after the
+   raw forward's, as in JAX); with ``split_g_adv`` (the
    default) D(exp) and D(fake) as two forwards, so D's spectral norm
    advances twice; the adversarial loss, VGG fidelity on (x + 1) / 2 and
    the multiscale identity loss on the identity output; one backward into
@@ -34,7 +37,8 @@ On a card G's GAM statistics and upsamples run kernels A and B forward and
 their backward kernels A' and B' (ops/gam_stats.py, ops/resize2x.py).  The
 JAX package's ``packed_train`` (a layout lever, equal math to float
 tolerance) has no counterpart: the port runs this canonical step under both
-values.  A G with train-mode norm layers is not ported.
+values.  Train-mode norm layers in G and D run the norm_act kernels
+(ops/norm_act.py), forward and backward.
 """
 
 from __future__ import annotations
@@ -59,15 +63,12 @@ def make_train_step(state: TrainState) -> Callable[[torch.Tensor, torch.Tensor],
     (metrics, images): the five losses as 0-d device tensors under JAX's
     names, and the fake, pool and identity images."""
     cfg = state.config
-    if cfg.g_norm_fun != "none":
-        raise NotImplementedError(
-            f"--g_norm_fun {cfg.g_norm_fun}: train-mode normalization is not ported yet "
-            "(ROADMAP queue 1 item 3)")
     g, d, vgg = state.g, state.d, state.vgg
     mode = cfg.adv_loss_type
     # G(raw) and G(exp) as one batched forward where G is stateless per
-    # sample; spectral norm takes one power iteration a forward, so two
-    fuse_g = not cfg.g_use_sn
+    # sample; spectral norm takes one power iteration a forward, and a norm
+    # layer its statistics from each forward's own batch, so two
+    fuse_g = not cfg.g_use_sn and cfg.g_norm_fun == "none"
     fuse_d = cfg.fused_d and cfg.d_norm_fun == "none"
     g_params, d_params = list(g.parameters()), list(d.parameters())
     g_lr = make_lr_schedule(cfg.g_lr, state.steps_per_epoch, cfg.lr_decay,
