@@ -6,7 +6,7 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from uegan_tpu_torch/csrc/ (one nvcc
-a source, started together) and runs thirteen phases, each of which ends the
+a source, started together) and runs fourteen phases, each of which ends the
 run with a non-zero exit on failure:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc versions;
@@ -124,6 +124,22 @@ run with a non-zero exit on failure:
    runs 2 more steps; ``--mode test`` on the result and on a .pth of seeded
    weights by the canonical route (A 5, B 4, no norm call), PNGs >= 35 dB
    from the f32 plain canonical forward with the same running statistics;
+6d. graph: the train step replayed as one CUDA graph (train/step.py:
+   StepGraph) under the default, the spectral-norm and the instance/batch
+   norm configurations at the same width: 10 bf16 steps from one seeded
+   state (the pool of 50 fills in steps 1-5 and swaps from step 6; the
+   learning rates fall from step 9; an EMA of G), replayed against the eager
+   step twice, with cuDNN's deterministic algorithms: losses, parameters,
+   buffers (u and v, running statistics), Adam's moments and step counts,
+   the pool and the EMA bit-equal wherever the two eager runs are, else no
+   further apart than they; the counters (one capture, five replays, five
+   eager steps), the capture's seconds, ms a step replayed and eager, the
+   peak memory of each; then which path a step takes under the benchmark's
+   device-only profiler (a replay), under its host-op profiler with shapes
+   (eager) and on another batch size (eager); ``--mode train`` with a pool
+   of one batch (4 steps: one eager, one capture, three replays, with
+   samples, a checkpoint, a validation batch and the EMA) and its resume for
+   4 more, the resumed Adams going on from the .pth's step counts;
 7. timing: images/s of the canonical and the packed forward at 512 px,
    batch 8, bfloat16, with kernels and with plain versions, and of the int8
    and int8_pallas forwards beside the packed one; each kernel's time beside
@@ -1518,7 +1534,7 @@ def phase_norm(dev, card: str) -> dict:
                     t.add_(1.0)  # a norm layer's weight about 1, not the recipe's 0.1 scale
     from uegan_tpu_torch.train.step import make_train_step
 
-    step = make_train_step(state)
+    step = make_train_step(state).eager  # the eager step's profile, as before the CUDA graph
     batches = train_batches(dev, 3)
     step(*batches[0])
     torch.cuda.synchronize()
@@ -1868,7 +1884,7 @@ def converged_uv(sd: dict) -> dict:
     return sd
 
 
-def seeded_train_state(dtype: str, dev, **kw):
+def seeded_train_state(dtype: str, dev, steps_per_epoch: int = 1000, **kw):
     """The train state at full width (cd 32, dd 32, VGG19 to relu5_1; other
     config fields from ``kw``) with N(0, 1/fan_in) weights from the seed, as
     phase 4's generator has; D's spectral-norm u and v random unit vectors,
@@ -1878,7 +1894,8 @@ def seeded_train_state(dtype: str, dev, **kw):
     from uegan_tpu_torch.models.initializers import fan_in_normal_state
     from uegan_tpu_torch.train.state import create_train_state
 
-    state = create_train_state(train_config(dtype, **kw), dev, (TRAIN_HW, TRAIN_HW), 1000)
+    state = create_train_state(train_config(dtype, **kw), dev, (TRAIN_HW, TRAIN_HW),
+                               steps_per_epoch)
     for i, m in enumerate((state.g, state.d, state.vgg)):
         sd = {k: torch.from_numpy(v) for k, v in fan_in_normal_state(m, SEED + i).items()}
         if m is state.g:
@@ -2103,9 +2120,11 @@ def phase_train(dev, card: str, tmp: str) -> dict:
 
     steps_kernels_vs_plain(dev, "6 train")
 
-    # bf16: finite, both nets moved; one step's launches
+    # bf16: finite, both nets moved; one step's launches.  The eager step
+    # alone: the plain versions swap functions that a CUDA graph of the step
+    # (phase 6d) would have captured with the kernels
     state = seeded_train_state("bfloat16", dev)
-    step = make_train_step(state)
+    step = make_train_step(state).eager
     before = {n: {k: v.detach().clone() for k, v in m.named_parameters()}
               for n, m in (("G", state.g), ("D", state.d))}
     batches = train_batches(dev, 3)
@@ -2275,7 +2294,7 @@ def phase_sn(dev, card: str, tmp: str) -> dict:
     steps_kernels_vs_plain(dev, "6b sn", g_use_sn=True)
 
     state = seeded_train_state("bfloat16", dev, g_use_sn=True)
-    step = make_train_step(state)
+    step = make_train_step(state).eager  # as phase 6's: eager, the kernels against plain
     batches = train_batches(dev, 3)
     for b in batches[:2]:
         step(*b)
@@ -2287,7 +2306,7 @@ def phase_sn(dev, card: str, tmp: str) -> dict:
     check_counts("one bf16 train step with --g_use_sn true's reflect pads", step_pads,
                  PAD_LAUNCHES["sn_train"])
     fused_state = seeded_train_state("bfloat16", dev)
-    steps = {"sn": step, "fused": make_train_step(fused_state)}
+    steps = {"sn": step, "fused": make_train_step(fused_state).eager}
     times = {"sn kernels": [], "sn plain": [], "fused kernels": []}
     for which in ("sn kernels", "fused kernels", "sn plain", "sn plain", "fused kernels",
                   "sn kernels"):
@@ -2474,6 +2493,209 @@ def phase_norm_cli(dev, card: str, tmp: str) -> None:
             raise AssertionError(f"--mode test --g_norm_fun InstanceNorm, epoch {epoch}: "
                                  f"{psnr:.2f} dB, {res}")
     log("6c norm", f"phase {time.time() - t_phase:.1f} s")
+
+
+GRAPH_STEPS = 10  # a pool of 5 batches: steps 1-5 fill it, 6-10 replay
+GRAPH_CONFIGS = {"fused": {}, "sn": {"g_use_sn": True},
+                 "in_bn": {"g_norm_fun": "InstanceNorm", "d_norm_fun": "BatchNorm"}}
+
+
+def train_record(state, losses: list) -> dict:
+    """Everything the train steps changed, copied and named: each step's
+    losses, G's and D's parameters and buffers, Adam's moments and step
+    counts, the pool (its images and count) and the EMA."""
+    import torch
+
+    rec = {f"step{i + 1}:{k}": v.detach().clone() for i, m in enumerate(losses)
+           for k, v in m.items()}
+    for net, m, opt in (("G", state.g, state.g_opt), ("D", state.d, state.d_opt)):
+        rec.update({f"{net}:{k}": v.detach().clone() for k, v in m.state_dict().items()})
+        for k, p in m.named_parameters():
+            rec.update({f"{net}:{k}:adam.{s}": v.detach().clone()
+                        for s, v in opt.state[p].items()})
+    rec["pool:images"] = state.pool.images.clone()
+    rec["pool:count"] = torch.tensor(state.pool.count)
+    rec.update({f"ema:{k}": v.clone() for k, v in (state.g_ema or {}).items()})
+    return rec
+
+
+def max_gap(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def graph_cli(card: str, tmp: str) -> None:
+    """``--mode train`` through cli.run with a pool of one batch, so that the
+    Trainer's steps replay from its second (4 steps, the losses printed each
+    step, samples at step 3, a checkpoint and a validation batch with the
+    EMA), then a resume from that .pth for 4 more (the pool starts empty
+    again): each run's ``=== step timing`` line must count one capture,
+    three replays and one eager step, and the resumed Adams must go on from
+    the saved step counts, which the .pth holds as a plain Adam writes them."""
+    import ast
+
+    import numpy as np
+    import torch
+
+    from uegan_tpu_torch import cli
+    from uegan_tpu_torch.utils.checkpoint import load_pth
+
+    rng = np.random.default_rng(SEED + 6)
+    data = os.path.join(tmp, "fivek_graph")
+    write_pairs(os.path.join(data, "train"), ("exp", "raw"), 4 * TRAIN_B,
+                (2 * TRAIN_HW, 2 * TRAIN_HW), rng)
+    write_pairs(os.path.join(data, "val"), ("label", "raw"), 2, (IMG, IMG), rng)
+    root = os.path.join(tmp, "results_graph")
+    models = os.path.join(root, "UEGAN-FiveK", "models")
+    for epochs in (1, 2):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+            res = cli.run([
+                "--mode", "train", "--train_img_dir", os.path.join(data, "train"),
+                "--val_img_dir", os.path.join(data, "val"),
+                "--val_label_dir", os.path.join(data, "val", "label") + os.sep,
+                "--save_root_dir", root, "--g_conv_dim", str(CD), "--d_conv_dim", str(CD),
+                "--image_size", str(2 * TRAIN_HW), "--resize_size", str(TRAIN_HW),
+                "--test_img_size", str(IMG), "--train_batch_size", str(TRAIN_B),
+                "--val_batch_size", "2", "--pool_size", str(TRAIN_B), "--g_ema_decay", "0.999",
+                "--total_epochs", str(epochs), "--pretrained_model", str(epochs - 1),
+                "--num_epochs_start_val", "0", "--val_each_epochs", "1", "--info_step", "1",
+                "--sample_step", "3", "--compute_dtype", "bfloat16", "--is_test_nima", "false",
+                "--is_test_psnr_ssim", "false", "--num_workers", "8"])
+        torch.cuda.synchronize()
+        line, = [ln for ln in printed.getvalue().splitlines() if ln.startswith("=== step timing")]
+        timing = ast.literal_eval(line[len("=== step timing: "):-len(" ===")])
+        ckpt = load_pth(os.path.join(models, f"UEGAN-FiveK_rahinge_{epochs}.pth"))
+        opt = ckpt["g_optimizer"]
+        steps = {float(v["step"]) for v in opt["state"].values()}
+        group, = opt["param_groups"]
+        counters = (timing["captures"], timing["replays"], timing["eager_steps"])
+        log("6d graph", f"--mode train, epochs {epochs - 1} to {epochs}, pool of one batch: "
+                        f"{res['steps']} steps in all, last losses {res['last_losses']}; "
+                        f"counters (captures, replays, eager) {counters}, replay share "
+                        f"{timing['replay_share']:.2f}, p50 step {timing['p50_s'] * 1e3:.2f} ms; "
+                        f"the .pth's G Adam: step counts {steps}, lr {group['lr']!r}, "
+                        f"capturable {group['capturable']} [{card}]")
+        if (counters != (1, 3, 1) or res["steps"] != 4 * epochs or steps != {4.0 * epochs}
+                or group["capturable"] or not isinstance(group["lr"], float)
+                or not all(math.isfinite(v) for v in res["last_losses"].values())):
+            raise AssertionError(f"6d graph: --mode train, epochs {epochs - 1} to {epochs}: "
+                                 f"{res}, counters {counters}, Adam steps {steps}, {group}")
+
+
+def phase_graph(dev, card: str, tmp: str) -> dict:
+    """Phase 6d (the module's docstring): the replayed train step against the
+    eager one, the profilers' paths, and the Trainer's replays."""
+    import torch
+
+    from uegan_tpu_torch.train.step import make_train_step
+
+    t_phase = time.time()
+    batches = train_batches(dev, GRAPH_STEPS)
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, kw in GRAPH_CONFIGS.items():
+            recs, info = {}, {}
+            for run in ("replay", "eager", "eager again"):
+                state = seeded_train_state("bfloat16", dev, steps_per_epoch=1,
+                                           pool_size=5 * TRAIN_B,
+                                           g_ema_decay=0.999, lr_num_epochs_decay=8, **kw)
+                fn = make_train_step(state)
+                step = fn if run == "replay" else fn.eager
+                losses, secs = [], []
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for b in batches:
+                    t = time.perf_counter()
+                    metrics, _ = step(*b)
+                    losses.append({k: v.clone() for k, v in metrics.items()})
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t)
+                recs[run] = train_record(state, losses)
+                info[run] = {"counters": (fn.captures, fn.replays, fn.eager_steps),
+                             "step6_s": secs[5],
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                             "lr": [float(g["lr"]) for g in state.g_opt.param_groups],
+                             "ms": train_step_ms(step, batches)}
+                if run == "replay":
+                    paths = graph_paths(fn, batches)
+                del state, fn, step
+                gc.collect()
+                torch.cuda.empty_cache()
+            rep, e1, e2 = recs["replay"], recs["eager"], recs["eager again"]
+            equal = {k: bits_equal(rep[k], e1[k]) for k in e1}
+            noisy = [k for k in e1 if not bits_equal(e2[k], e1[k])]
+            worse = [(k, max_gap(rep[k], e1[k]), max_gap(e2[k], e1[k])) for k in e1
+                     if not equal[k] and (k not in noisy or max_gap(rep[k], e1[k])
+                                          > max_gap(e2[k], e1[k]))]
+            counters = info["replay"]["counters"]
+            log("6d graph", f"{name}: {len(e1)} tensors over {GRAPH_STEPS} steps, replay vs "
+                            f"eager bit-equal {sum(equal.values())}, eager vs eager bit-equal "
+                            f"{len(e1) - len(noisy)}; over the eager pair's gap "
+                            f"{len(worse)} {worse[:4]}; counters (captures, replays, eager) "
+                            f"{counters}; step 6 (capture and replay) "
+                            f"{info['replay']['step6_s']:.3f} s against eager "
+                            f"{info['eager']['step6_s']:.3f} s; ms a step replayed "
+                            f"{info['replay']['ms']:.3f}, eager {info['eager']['ms']:.3f}; "
+                            f"peak GiB replayed {info['replay']['peak_gib']:.3f}, eager "
+                            f"{info['eager']['peak_gib']:.3f}; G lr after the steps "
+                            f"{info['replay']['lr']}; paths {paths} [{card}]")
+            if worse or counters != (1, GRAPH_STEPS - 5, 5) or paths != GRAPH_PATHS:
+                raise AssertionError(f"6d graph: {name}: the replayed step differs from the "
+                                     f"eager one: {worse[:8]}, counters {counters}, "
+                                     f"paths {paths}")
+            out[name] = info
+    finally:
+        torch.backends.cudnn.deterministic = False
+    graph_cli(card, tmp)
+    log("6d graph", f"phase {time.time() - t_phase:.1f} s")
+    return out
+
+
+# the path a step takes: under the benchmark's device-only profiler, under
+# its host-op profiler with shapes, under a host-op profiler without shapes,
+# on another batch size, and then once more on the captured one
+GRAPH_PATHS = {"device-only profiler": "replay", "host ops with shapes": "eager",
+               "host ops without shapes": "replay", "another batch size": "eager",
+               "after them": "replay"}
+
+
+def graph_paths(fn, batches: list) -> dict:
+    """Which path ``fn`` (a make_train_step past its capture) takes in each
+    case of GRAPH_PATHS, read from its counters; the device-only profiler's
+    record must hold the replayed kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from uegan_tpu_torch.train.step import host_ops_recorded
+
+    cpu, cuda = ProfilerActivity.CPU, ProfilerActivity.CUDA
+    half = tuple(t[:t.shape[0] // 2] for t in batches[0])
+    cases = {"device-only profiler": (lambda: torch_profile(activities=[cuda]), batches[0]),
+             "host ops with shapes": (lambda: torch_profile(activities=[cpu, cuda],
+                                                            record_shapes=True), batches[1]),
+             "host ops without shapes": (lambda: torch_profile(activities=[cpu, cuda]),
+                                         batches[2]),
+             "another batch size": (contextlib.nullcontext, half),
+             "after them": (contextlib.nullcontext, batches[3])}
+    paths, seen = {}, {}
+    for what, (ctx, b) in cases.items():
+        before = fn.replays
+        with ctx() as prof:
+            seen[what] = (str(torch._C._autograd._profiler_type()), host_ops_recorded())
+            fn(*b)
+            torch.cuda.synchronize()
+        paths[what] = "replay" if fn.replays > before else "eager"
+        if what == "device-only profiler":
+            kernels = sum(1 for e in prof.profiler.kineto_results.events()
+                          if str(e.device_type()).endswith("CUDA"))
+            if kernels < 1000:
+                raise AssertionError(f"6d graph: the device-only profiler recorded {kernels} "
+                                     "device records of a replayed step")
+            paths["device records of a replay"] = kernels
+    log("6d graph", f"paths {paths}; profiler type and host_ops_recorded() under each {seen}")
+    return {k: v for k, v in paths.items() if k in GRAPH_PATHS}
 
 
 def phase_timing(dev, card: str) -> dict:
@@ -3983,6 +4205,7 @@ def main() -> int:
         launches["train"] = phase_train(dev, card, tmp)["launches"]
         launches.update(phase_sn(dev, card, tmp))
         phase_norm_cli(dev, card, tmp)
+        phase_graph(dev, card, tmp)
     timing = phase_timing(dev, card)
     phase_profile(dev, card)
     with tempfile.TemporaryDirectory(prefix="uegan_smoke_nima_") as tmp:

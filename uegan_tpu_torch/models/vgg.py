@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from uegan_tpu_torch.utils.cache import tensor_cache
+
 # (name, torchvision features index, out channels), up to relu5_1
 VGG19_CONVS = (
     ("conv1_1", 0, 64), ("conv1_2", 2, 64),
@@ -36,10 +38,18 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@tensor_cache(maxsize=None)
+def _imagenet_stats(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    # made once per device, so that later calls copy nothing from the host
+    # (a CUDA graph of the train step can capture them)
+    with torch.inference_mode(False):
+        return (torch.tensor(IMAGENET_MEAN, device=device),
+                torch.tensor(IMAGENET_STD, device=device))
+
+
 def normalize_imagenet(x01: torch.Tensor) -> torch.Tensor:
     """[0, 1] RGB (..., 3) -> ImageNet-normalized, f32 (reference losses.py:19-20)."""
-    mean = torch.tensor(IMAGENET_MEAN, device=x01.device)
-    std = torch.tensor(IMAGENET_STD, device=x01.device)
+    mean, std = _imagenet_stats(x01.device)
     return (x01.float() - mean) / std
 
 

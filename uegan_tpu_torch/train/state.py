@@ -23,7 +23,7 @@ from uegan_tpu_torch.models.generator import Generator
 from uegan_tpu_torch.models.initializers import init_weights
 from uegan_tpu_torch.models.vgg import VGG19Features
 from uegan_tpu_torch.train.image_pool import ImagePool
-from uegan_tpu_torch.train.schedules import make_optimizer
+from uegan_tpu_torch.train.schedules import load_optimizer_state, make_optimizer, optimizer_state
 from uegan_tpu_torch.utils.checkpoint import EMA_KEY, save_pth
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -96,7 +96,7 @@ def save_checkpoint(state: TrainState, path: str, epoch) -> str:
     cfg = state.config
     last = int(state.step // state.steps_per_epoch)
     return save_pth(path, state.g.state_dict(), state.d.state_dict(), epoch,
-                    state.g_opt.state_dict(), state.d_opt.state_dict(),
+                    optimizer_state(state.g_opt), optimizer_state(state.d_opt),
                     {"last_epoch": last, "base_lrs": [cfg.g_lr]},
                     {"last_epoch": last, "base_lrs": [cfg.d_lr]}, g_ema=state.g_ema)
 
@@ -115,7 +115,7 @@ def load_checkpoint(state: TrainState, ckpt: Dict) -> None:
                              if not k.endswith("num_batches_tracked")})
     for opt, key in ((state.g_opt, "g_optimizer"), (state.d_opt, "d_optimizer")):
         if ckpt.get(key):
-            opt.load_state_dict(ckpt[key])
+            load_optimizer_state(opt, ckpt[key])
     if state.g_ema is not None:
         stored = ckpt.get(EMA_KEY) or {}
         state.g_ema = {k: stored.get(k, p).detach().to(p.device, p.dtype).clone()

@@ -21,9 +21,12 @@ loader's next batch), ``trainer.to_device``, the step's own
 (train/step.py) and ``trainer.post_step`` (loss lines, whose ``float``
 waits for the card, samples, checkpoints, validation), and ends with JAX's
 ``=== step timing: {...} ===`` line read from them (:func:`step_timing`).
+The line adds the step's counters (train/step.py): its CUDA graph's
+captures and replays, its eager steps, and the replays' share of the steps.
 ``--profile_dir DIR`` writes a ``torch.profiler`` trace of five steps (the
 11th to the 15th of the run, or its last five) into DIR, as JAX's
-``StepTimer.maybe_trace`` does with ``jax.profiler``.
+``StepTimer.maybe_trace`` does with ``jax.profiler``; the profiler records
+the ops' shapes, so those steps run eagerly and the trace names their ops.
 """
 
 from __future__ import annotations
@@ -240,7 +243,11 @@ class Trainer:
             for sig, h in old_handlers.items():
                 signal.signal(sig, h)
         self.val_best_results()
-        print(f"=== step timing: {step_timing(spans.recorded(t_run))} ===")
+        timing = step_timing(spans.recorded(t_run))
+        counts = {k: getattr(self._step_fn, k, 0) for k in ("captures", "replays", "eager_steps")}
+        timing.update(counts, replay_share=counts["replays"]
+                      / max(1, counts["replays"] + counts["eager_steps"]))
+        print(f"=== step timing: {timing} ===")
         print("=========== Complete training ===========")
         return {"steps": self.state.step, "last_losses": last}
 
@@ -250,7 +257,9 @@ class Trainer:
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
+        # with the ops' shapes: the train step then runs eagerly, so the trace
+        # names its ops (train/step.py:host_ops_recorded)
+        prof = profile(activities=acts, record_shapes=True)
         prof.__enter__()
         return prof
 
