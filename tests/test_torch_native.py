@@ -23,7 +23,6 @@ from uegan_tpu_torch.data.pipeline import _Loader, get_test_loader
 from uegan_tpu_torch.infer import native, packed, tiles
 from uegan_tpu_torch.models.generator import Generator
 from uegan_tpu_torch.models.initializers import fan_in_normal_state
-from uegan_tpu_torch.train.step import make_eval_step
 from uegan_tpu_torch.utils.image_io import normalize_u8, quantize_u8, read_png_rgb, to_uint8
 
 CD = 8
@@ -183,7 +182,7 @@ def test_cli_tiles(native_run, monkeypatch):
     data, save, g = native_run
     res, pngs = _cli(data, save, ["--tile_size", "32", "--tile_overlap", "4"], monkeypatch)
     assert res["n_images"] == 3
-    step = make_eval_step(g)
+    step = packed.make_eval_step(g)
     fn = lambda b: step(torch.from_numpy(np.ascontiguousarray(b))).float().numpy()
     for n in ("img00", "img02"):
         raw = read_png_rgb(str(data / "raw" / f"{n}.png"))

@@ -309,7 +309,7 @@ def test_residual_tail_d2s_takes_a_window_of_rows(dtype):
 def test_cpu_dispatch_and_refusals():
     """A CPU tensor takes the plain path (no launch is counted); inputs the
     kernels do not take raise; asking for CUDA without a card raises."""
-    from uegan_tpu_torch.cli import resolve_device
+    from uegan_tpu_torch.utils.device import resolve_device
 
     before = (gam_mean_std.launches, upsample2x.launches)
     x = torch.randn(2, 4, 4, 8)

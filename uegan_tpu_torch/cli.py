@@ -13,20 +13,8 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Optional
 
-import torch
-
 from uegan_tpu_torch.config import Config, get_config
-
-
-def resolve_device(name: Optional[str] = None) -> torch.device:
-    """``UEGAN_TORCH_DEVICE`` (default ``cuda``) -> torch.device; raises when
-    a CUDA device is requested and none is present."""
-    device = torch.device(name or os.environ.get("UEGAN_TORCH_DEVICE") or "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but CUDA is not available; "
-            "set UEGAN_TORCH_DEVICE=cpu to run the plain PyTorch versions on the CPU")
-    return device
+from uegan_tpu_torch.utils.device import resolve_device
 
 
 def check_supported(args: Config) -> None:

@@ -35,16 +35,19 @@ import torch.nn.functional as F
 
 from uegan_tpu_torch.models.blocks import to_nchw, to_nhwc
 from uegan_tpu_torch.models.generator import Generator, check_input_hw
+from uegan_tpu_torch.models.initializers import init_weights
 from uegan_tpu_torch.ops.conv_int8 import conv2d_int8
 from uegan_tpu_torch.ops.norms import instance_norm
 from uegan_tpu_torch.ops.resize2x import upsample2x
 from uegan_tpu_torch.ops.s2d_fuse import (depth_to_space, residual_tail_d2s, s2d_convert,
                                           space_to_depth)
-from uegan_tpu_torch.train.step import make_eval_step
 from uegan_tpu_torch.utils.cache import tensor_cache
+from uegan_tpu_torch.utils.checkpoint import uses_spectral_norm
+from uegan_tpu_torch.utils.device import compute_dtype
+from uegan_tpu_torch.utils.seed import setup_seed
 
 __all__ = ["space_to_depth", "depth_to_space", "pack_generator_params", "make_packed_eval",
-           "make_fast_eval"]
+           "served_generator", "make_eval_step", "make_fast_eval"]
 
 Channels = Union[int, Sequence[int]]
 
@@ -565,6 +568,36 @@ def make_packed_eval(g: Generator, packed: Dict) -> Callable[[torch.Tensor], tor
         return residual_tail_d2s(res, xp)  # clip(res + x, -1, 1), unpacked
 
     return fn
+
+
+def served_generator(config, state: Optional[Dict[str, torch.Tensor]],
+                     device) -> Generator:
+    """The generator that the Tester, the service and the exporter serve:
+    ``config``'s G in its compute dtype, with spectral norm under
+    ``--g_use_sn`` or where ``state`` (a ``G_net`` state dict) keeps
+    ``weight_orig``; its weights are ``state``, or the Tester's seeded init
+    when ``state`` is None.  On ``device``, in the mode a new module has."""
+    g = Generator(conv_dim=config.g_conv_dim, norm_fun=config.g_norm_fun,
+                  act_fun=config.g_act_fun,
+                  use_sn=config.g_use_sn or (state is not None and uses_spectral_norm(state)),
+                  dtype=compute_dtype(config.compute_dtype))
+    if state is None:
+        init_weights(g, config.init_type, 0.02, setup_seed(config.seed))
+    else:
+        g.load_state_dict(state)
+    return g.to(device)
+
+
+def make_eval_step(g: Generator) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Inference forward: G in eval mode (running statistics), no autograd.
+    (N, H, W, 3) in [-1, 1] -> (N, H, W, 3) in G's dtype."""
+    g.eval()
+
+    def eval_step(img_raw: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return g(img_raw)
+
+    return eval_step
 
 
 def make_fast_eval(g: Generator, config,

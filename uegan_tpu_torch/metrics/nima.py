@@ -20,8 +20,7 @@ import torch
 from PIL import Image
 
 from uegan_tpu_torch.models.nima import NIMA, load_nima_pth, score_stats
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from uegan_tpu_torch.utils.device import DTYPES, resolve_device
 
 
 def prepare_image_np(image: Image.Image) -> np.ndarray:
@@ -69,8 +68,6 @@ def init_nima(weights_path: str = "", rng_seed: int = 0, compute_dtype: str = "f
     if compute_dtype not in DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(DTYPES)}, got {compute_dtype!r}")
     if device is None:
-        from uegan_tpu_torch.cli import resolve_device
-
         device = resolve_device()
     model = NIMA(dtype=DTYPES[compute_dtype])
     if weights_path and os.path.exists(weights_path):

@@ -28,8 +28,8 @@ def main(argv=None) -> None:
                    help="float32 (reference parity) or bfloat16")
     args = p.parse_args(argv)
 
-    from uegan_tpu_torch.cli import resolve_device
     from uegan_tpu_torch.metrics.nima import init_nima, load_images, nima_scores
+    from uegan_tpu_torch.utils.device import resolve_device
 
     model = init_nima(args.model, compute_dtype=args.compute_dtype, device=resolve_device())
     files = sorted(

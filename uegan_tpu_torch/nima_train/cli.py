@@ -60,7 +60,7 @@ def main(argv=None) -> None:
         print("wrote:", *paths)
         return
 
-    from uegan_tpu_torch.cli import resolve_device
+    from uegan_tpu_torch.utils.device import resolve_device
 
     if args.cmd == "train-model":
         from uegan_tpu_torch.nima_train.train import train_nima

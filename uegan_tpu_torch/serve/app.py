@@ -48,16 +48,12 @@ import numpy as np
 import torch
 from PIL import Image
 
-from uegan_tpu_torch.cli import resolve_device
 from uegan_tpu_torch.config import Config
 from uegan_tpu_torch.infer.native import enhance_native
-from uegan_tpu_torch.infer.packed import make_fast_eval
+from uegan_tpu_torch.infer.packed import make_fast_eval, served_generator
 from uegan_tpu_torch.metrics.nima import init_nima, prepare_image_np
-from uegan_tpu_torch.models.generator import Generator
-from uegan_tpu_torch.models.initializers import init_weights
-from uegan_tpu_torch.train.state import compute_dtype
-from uegan_tpu_torch.utils.checkpoint import (generator_state, load_pth, orbax_refusal,
-                                             uses_spectral_norm)
+from uegan_tpu_torch.utils.checkpoint import generator_state, load_pth, orbax_refusal
+from uegan_tpu_torch.utils.device import resolve_device
 from uegan_tpu_torch.utils.image_io import normalize_u8, quantize_u8
 
 PLATFORMS = {"": None, "cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
@@ -203,18 +199,11 @@ class _Models:
     def _build_enhancer(self) -> None:
         cfg = Config(quantized_inference=self.quantized_inference).validate()
         # the EMA copy where the file keeps one (Config.ema_eval), as JAX
-        # serves; a --g_use_sn generator's file (weight_orig, u, v) builds
-        # one with spectral norm, which make_fast_eval runs canonically
+        # serves; without a file the Tester's seeded weights, as JAX serves
+        # its PRNGKey(0) init
         sd = (generator_state(load_pth(self.generator_ckpt), ema=cfg.ema_eval)
               if self.generator_ckpt else None)
-        g = Generator(conv_dim=cfg.g_conv_dim, norm_fun=cfg.g_norm_fun, act_fun=cfg.g_act_fun,
-                      use_sn=sd is not None and uses_spectral_norm(sd),
-                      dtype=compute_dtype(cfg.compute_dtype))
-        if sd is not None:
-            g.load_state_dict(sd)
-        else:  # the Tester's seeded weights, as JAX serves its PRNGKey(0) init
-            init_weights(g, cfg.init_type, 0.02, torch.Generator().manual_seed(cfg.seed))
-        g = g.to(self.device).eval()
+        g = served_generator(cfg, sd, self.device).eval()
         # after the load: the packed (and int8) kernels are made from the
         # served weights; int8 calibrates on JAX's seeded batch, as JAX does
         with torch.inference_mode():

@@ -69,7 +69,7 @@ class _Forward(torch.nn.Module):
 
 
 def _device(platforms: tuple) -> torch.device:
-    from uegan_tpu_torch.cli import resolve_device
+    from uegan_tpu_torch.utils.device import resolve_device
 
     if len(platforms) > 1:
         raise ValueError(f"--platforms {','.join(platforms)}: a torch.export program holds "
@@ -82,12 +82,8 @@ def _device(platforms: tuple) -> torch.device:
 def _generator(cfg, ckpt: str, out_path: str, device: torch.device):
     """G of ``cfg`` with the weights of the ``.pth`` ``ckpt`` (seeded as the
     Tester seeds it without one), on ``device`` in eval mode."""
-    from uegan_tpu_torch.models.generator import Generator
-    from uegan_tpu_torch.models.initializers import init_weights
-    from uegan_tpu_torch.train.state import compute_dtype
-    from uegan_tpu_torch.utils.checkpoint import (generator_state, load_pth, orbax_refusal,
-                                                  uses_spectral_norm)
-    from uegan_tpu_torch.utils.seed import setup_seed
+    from uegan_tpu_torch.infer.packed import served_generator
+    from uegan_tpu_torch.utils.checkpoint import generator_state, load_pth, orbax_refusal
 
     sd = None
     if os.path.isdir(ckpt):
@@ -98,16 +94,7 @@ def _generator(cfg, ckpt: str, out_path: str, device: torch.device):
     elif ckpt:
         raise FileNotFoundError(f"--ckpt {ckpt!r} is neither a .pth file nor an orbax "
                                 "checkpoint directory")
-    # a --g_use_sn generator's file (weight_orig, u, v) builds one with
-    # spectral norm, whose forward make_fast_eval keeps canonical
-    g = Generator(conv_dim=cfg.g_conv_dim, norm_fun=cfg.g_norm_fun, act_fun=cfg.g_act_fun,
-                  use_sn=sd is not None and uses_spectral_norm(sd),
-                  dtype=compute_dtype(cfg.compute_dtype))
-    if sd is None:
-        init_weights(g, cfg.init_type, 0.02, setup_seed(cfg.seed))
-    else:
-        g.load_state_dict(sd)
-    return g.to(device).eval()
+    return served_generator(cfg, sd, device).eval()
 
 
 def export_generator(out_path: str, ckpt: str = "", hw: int = 512, batch: int = 16,

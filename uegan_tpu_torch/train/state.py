@@ -25,15 +25,7 @@ from uegan_tpu_torch.models.vgg import VGG19Features
 from uegan_tpu_torch.train.image_pool import ImagePool
 from uegan_tpu_torch.train.schedules import load_optimizer_state, make_optimizer, optimizer_state
 from uegan_tpu_torch.utils.checkpoint import EMA_KEY, save_pth
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def compute_dtype(name: str) -> torch.dtype:
-    if name not in DTYPES:
-        raise NotImplementedError(
-            f"compute dtype [{name}]: the port's kernels take float32 and bfloat16")
-    return DTYPES[name]
+from uegan_tpu_torch.utils.device import compute_dtype
 
 
 @dataclass

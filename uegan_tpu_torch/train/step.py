@@ -1,5 +1,5 @@
-"""The GAN train step and the generator's inference step, counterparts of
-uegan_tpu/train/step.py:make_train_step and make_eval_step.
+"""The GAN train step, counterpart of uegan_tpu/train/step.py:make_train_step
+(its make_eval_step is infer/packed.py's).
 
 One step, in the reference's order (reference trainer.py:75-119):
 
@@ -74,7 +74,6 @@ from torch.autograd import profiler as _profiler
 from uegan_tpu_torch.losses.gan import multiscale_gan_loss
 from uegan_tpu_torch.losses.perceptual import perceptual_loss
 from uegan_tpu_torch.losses.reconstruction import multiscale_rec_loss
-from uegan_tpu_torch.models.generator import Generator
 from uegan_tpu_torch.train.schedules import make_lr_schedule, set_lr
 from uegan_tpu_torch.train.state import TrainState
 from uegan_tpu_torch.utils.spans import span
@@ -302,15 +301,3 @@ def make_train_step(state: TrainState) -> Callable[[torch.Tensor, torch.Tensor],
     train_step.captures = train_step.replays = train_step.eager_steps = 0
     train_step.eager = eager
     return train_step
-
-
-def make_eval_step(g: Generator) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Inference forward: G in eval mode (running statistics), no autograd.
-    (N, H, W, 3) in [-1, 1] -> (N, H, W, 3) in G's dtype."""
-    g.eval()
-
-    def eval_step(img_raw: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
-            return g(img_raw)
-
-    return eval_step

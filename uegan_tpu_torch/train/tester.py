@@ -36,19 +36,14 @@ import torch
 
 from uegan_tpu_torch.config import Config
 from uegan_tpu_torch.infer.native import enhance_native
-from uegan_tpu_torch.infer.packed import make_fast_eval
+from uegan_tpu_torch.infer.packed import make_eval_step, make_fast_eval, served_generator
 from uegan_tpu_torch.infer.tiles import enhance_tiled
 from uegan_tpu_torch.metrics.nima import calc_nima, init_nima
 from uegan_tpu_torch.metrics.psnr import calc_psnr
 from uegan_tpu_torch.metrics.ssim import calc_ssim
-from uegan_tpu_torch.models.generator import Generator
-from uegan_tpu_torch.models.initializers import init_weights
-from uegan_tpu_torch.train.state import compute_dtype
-from uegan_tpu_torch.train.step import make_eval_step
 from uegan_tpu_torch.utils.checkpoint import find_checkpoint, generator_state, load_pth
 from uegan_tpu_torch.utils.image_io import (normalize_u8, quantize_u8, save_image,
                                             save_image_grid, to_uint8)
-from uegan_tpu_torch.utils.seed import setup_seed
 from uegan_tpu_torch.utils.spans import span
 
 
@@ -78,10 +73,8 @@ class Tester:
 
     def build_model(self) -> None:
         args = self.args
-        g = Generator(conv_dim=args.g_conv_dim, norm_fun=args.g_norm_fun, act_fun=args.g_act_fun,
-                      use_sn=args.g_use_sn, dtype=compute_dtype(args.compute_dtype))
-        init_weights(g, args.init_type, 0.02, setup_seed(args.seed))
-        self.G = g.to(self.device)
+        # seeded; spectral norm from --g_use_sn (the checkpoint loads later)
+        self.G = served_generator(args, None, self.device)
         if args.is_print_network:
             n = sum(p.numel() for p in self.G.parameters())
             print(f"=== The number of parameters of [Generator] is [{n}] or [{n / 1e6:>.4f}M] ===")
