@@ -160,7 +160,11 @@ run with a non-zero exit on failure:
    packed forward's six shapes (B=16) and forward and backward at G's
    eleven in the fused and the SN step, beside its plain version (F.pad of
    the 5-d view after torch.cat) and the library's (F.pad of the NCHW
-   concat; aten.reflection_pad3d_backward);
+   concat; aten.reflection_pad3d_backward); the GAM norm (ops/gam_norm.py,
+   the norm layers' forward pair) at the packed forward's five maps (B=16)
+   against float64, beside its plain version (the PyTorch chain) and
+   F.instance_norm, and at one image (512 px, and a 2048 px strip
+   forward's three maps) beside the chain;
 8. profile: the canonical, packed and int8_pallas forwards at 512 px, batch
    8, bfloat16, under torch.profiler: wall and device-busy time per forward,
    the device's idle share, and device time in buckets of kernel names;
@@ -310,13 +314,25 @@ SERVE_NATIVE_AT_ONCE = 4
 # exported and held to the eager forward, and the launches one call makes
 EXPORT_CASES = [("packed", IMG, 8, "", False), ("int8_pallas", IMG, 2, "int8_pallas", False),
                 ("u8", IMG, 2, "", True), ("strips", 2048, 1, "", False)]
-EXPORT_LAUNCHES = {"packed": {"s2d_convert": 1, "upsample2x": 3, "residual_tail_d2s": 1},
+EXPORT_LAUNCHES = {"packed": {"s2d_convert": 1, "upsample2x": 3, "residual_tail_d2s": 1,
+                              "gam_norm": 5},
                    "int8_pallas": {"gam_stats": 4, "upsample2x": 3, "s2d_convert": 1,
-                                   "residual_tail_d2s": 1, "packed_conv_int8": 1},
-                   "u8": {"s2d_convert": 1, "upsample2x": 3, "residual_tail_d2s": 1},
-                   "strips": {"s2d_convert": 1, "upsample2x": 2, "residual_tail_d2s": 1}}
+                                   "residual_tail_d2s": 1, "packed_conv_int8": 1, "gam_norm": 1},
+                   "u8": {"s2d_convert": 1, "upsample2x": 3, "residual_tail_d2s": 1,
+                          "gam_norm": 5},
+                   "strips": {"s2d_convert": 1, "upsample2x": 2, "residual_tail_d2s": 1,
+                              "gam_norm": 3}}
 KERNELS = ("gam_stats", "upsample2x", "s2d_convert", "residual_tail_d2s", "packed_conv_int8",
-           "packed_conv", "gam_stats_bwd", "upsample2x_bwd")
+           "packed_conv", "gam_stats_bwd", "upsample2x_bwd", "gam_norm")
+# phase 7: the GAM norm pair at the enhancement cell's five maps (B = 16,
+# 512 px): ga1's packed view (N, H/2, W/2 * 4, C), then ga2 .. ga5
+GAM_NORM_B = 16
+GAM_NORM_SHAPES = [(IMG // 2, IMG // 2 * 4, 32)] + [(IMG >> s, IMG >> s, 32 << s)
+                                                    for s in range(1, 5)]
+# and at one image, as the service's sequential requests and the strips run
+# it: the same five maps, and a 2048 px strip forward's ga3 .. ga5
+GAM_NORM_ONE = {"512 px": GAM_NORM_SHAPES,
+                "2048 px strips": [(2048 >> s, 2048 >> s, 32 << s) for s in range(2, 5)]}
 # the train slice: 256 px crops of 512, batch 10, so G runs on 20 images
 TRAIN_HW = 256
 TRAIN_B = 10
@@ -694,10 +710,11 @@ def plain_versions():
     through the kernels' plain PyTorch versions."""
     from uegan_tpu_torch.infer import packed, quantized, strips
     from uegan_tpu_torch.models import blocks, generator
-    from uegan_tpu_torch.ops import (conv, gam_stats, packed_conv_int8, reflect_pad, resize2x,
-                                     s2d_fuse)
+    from uegan_tpu_torch.ops import (conv, gam_norm, gam_stats, packed_conv_int8, reflect_pad,
+                                     resize2x, s2d_fuse)
 
-    swaps = [(blocks, "gam_mean_std", gam_stats.plain),
+    # packed's gam_norm serves the strips' and the int8 forwards' GAM norms too
+    swaps = [(blocks, "gam_mean_std", gam_stats.plain), (packed, "gam_norm", gam_norm.plain),
              (conv, "reflect_pad", lambda parts, pad: reflect_pad.plain(
                  parts[0], parts[1] if len(parts) == 2 else None, pad)),
              (generator, "upsample2x", resize2x.plain), (packed, "upsample2x", resize2x.plain)]
@@ -747,6 +764,7 @@ def packed_forward(g):
 
 
 def _wrappers() -> dict:
+    from uegan_tpu_torch.ops.gam_norm import gam_norm
     from uegan_tpu_torch.ops.gam_stats import gam_mean_std, gam_mean_std_backward
     from uegan_tpu_torch.ops.packed_conv import packed_conv
     from uegan_tpu_torch.ops.packed_conv_int8 import packed_conv_int8
@@ -756,7 +774,7 @@ def _wrappers() -> dict:
     return {"gam_stats": gam_mean_std, "upsample2x": upsample2x, "s2d_convert": s2d_convert,
             "residual_tail_d2s": residual_tail_d2s, "packed_conv_int8": packed_conv_int8,
             "packed_conv": packed_conv, "gam_stats_bwd": gam_mean_std_backward,
-            "upsample2x_bwd": upsample2x_backward}
+            "upsample2x_bwd": upsample2x_backward, "gam_norm": gam_norm}
 
 
 def counts() -> dict:
@@ -1628,7 +1646,8 @@ def phase_model(dev) -> None:
             pk_p = fwd(x)
         torch.cuda.synchronize()
         check_counts("one packed forward", pk, {**zero, "s2d_convert": 1,
-                                                "residual_tail_d2s": 1, "upsample2x": 3})
+                                                "residual_tail_d2s": 1, "upsample2x": 3,
+                                                "gam_norm": 5})
         check_counts("one packed forward's reflect pads", pk_pads, PAD_LAUNCHES["packed"])
         check_counts("the plain packed forward", (counts(), pad_counts()), (pk, pk_pads))
     for name, t in (("canonical", out_k), ("packed", pk_k)):
@@ -1689,7 +1708,8 @@ def phase_int8_model(dev) -> None:
             check_counts(f"the plain {mode} forward", counts(), run)
             check_counts(f"one {mode} forward", run, {
                 **zero, "gam_stats": 4, "upsample2x": 3, "s2d_convert": 1,
-                "residual_tail_d2s": 1, "packed_conv_int8": int(mode == "int8_pallas")})
+                "residual_tail_d2s": 1, "packed_conv_int8": int(mode == "int8_pallas"),
+                "gam_norm": 1})
             t = outs[mode]
             if not bool(torch.isfinite(t).all()) or t.shape != x.shape:
                 raise AssertionError(f"{mode} output: shape {tuple(t.shape)}, finite "
@@ -1736,9 +1756,10 @@ def phase_end_to_end(dev, tmp: str) -> dict:
 
     zero = dict.fromkeys(KERNELS, 0)
     expect = {"canonical": {**zero, "gam_stats": 10, "upsample2x": 8},
-              "packed": {**zero, "s2d_convert": 2, "residual_tail_d2s": 2, "upsample2x": 6},
+              "packed": {**zero, "s2d_convert": 2, "residual_tail_d2s": 2, "upsample2x": 6,
+                         "gam_norm": 10},
               "int8_pallas": {**zero, "packed_conv_int8": 2, "gam_stats": 12, "upsample2x": 9,
-                              "s2d_convert": 3, "residual_tail_d2s": 2}}
+                              "s2d_convert": 3, "residual_tail_d2s": 2, "gam_norm": 3}}
     # int8_pallas: the calibration's packed forward, then two int8 forwards,
     # whose canonical interior pads as the packed forward's does
     expect_pads = {"canonical": scaled_pads((2, "canonical")), "packed": scaled_pads((2, "packed")),
@@ -2833,6 +2854,7 @@ def phase_timing(dev, card: str) -> dict:
                         f"{us(t, 'plain')} per call [{card}]")
         timing_int8(dev, card, gen, b, add)
         pads = timing_pad(dev, card, gen, three, us)
+        gam_norm_err = timing_gam_norm(dev, card, gen, three, add, us)
     methods = " and ".join(sorted(DEVICE_METHODS))
     for name in KERNELS:
         p = per[name]
@@ -2843,7 +2865,8 @@ def phase_timing(dev, card: str) -> dict:
         lib = "none" if dv["library"] is None else (
             f"{dv['library']:.4f} (eager {ev['library']:.4f})")
         per_what = {"packed_conv": "dec4-shape call", "gam_stats_bwd": "train step",
-                    "upsample2x_bwd": "train step"}.get(name, "forward")
+                    "upsample2x_bwd": "train step",
+                    "gam_norm": f"forward at B={GAM_NORM_B}"}.get(name, "forward")
         log("7 timing", f"{name} per {per_what}, "
                         f"device-only ({methods}): kernel {dv['kernel']:.4f} ms (eager "
                         f"{ev['kernel']:.4f}), plain {dv['plain']:.4f} (eager {ev['plain']:.4f}), "
@@ -2851,7 +2874,78 @@ def phase_timing(dev, card: str) -> dict:
                         f"({p['bytes'] / 1e6:.1f} MB at 3.35 TB/s: {t_bytes:.4f} ms; "
                         f"{p['ops'] / 1e9:.1f} G operations: {t_ops:.4f} ms), "
                         f"{p['bound'] / dv['kernel']:.0%} of the bound [{card}]")
-    return {"forward": fwd, "per_kernel": per, "reflect_pad": pads}
+    return {"forward": fwd, "per_kernel": per, "reflect_pad": pads, "gam_norm_err": gam_norm_err}
+
+
+def timing_gam_norm(dev, card: str, gen, three, add, us) -> float:
+    """The GAM norm pair (ops/gam_norm.py) device-only in bfloat16 at the
+    enhancement cell's five maps (GAM_NORM_SHAPES, B = GAM_NORM_B), cold
+    (each call takes the next of a ring of inputs over 100 MB), beside its
+    plain version (the PyTorch chain the packed forward ran before it) and
+    the library call (F.instance_norm of the NCHW view); bound: x read once
+    and y written once at 3.35 TB/s.  At each map the pair is also held to
+    the plain form run in float64, in float32 and in bfloat16 (chip_smoke's
+    compare: 1e-5 in float32, one ulp in bfloat16), and two of its images
+    alone must give the bits they get in the batch.  Then at one image
+    (GAM_NORM_ONE), the pair against the chain alone, device-only.  Returns
+    the largest error, as the kernels line's max_abs_err."""
+    import torch
+    import torch.nn.functional as F
+
+    from uegan_tpu_torch.ops import gam_norm as gn
+
+    worst = 0.0
+    for h, w, c in GAM_NORM_SHAPES:
+        shape = (GAM_NORM_B, h, w, c)
+        nbytes = GAM_NORM_B * h * w * c * 2
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(shape, generator=gen, device=dev) * 2 + 1).to(dtype)
+            got = gn.gam_norm(x)
+            want = gn.plain(x.double())
+            err, _, ok = compare(got, want, dtype)
+            perr = compare(gn.plain(x), want, dtype)[0]
+            worst = max(worst, err)
+            log("7 timing", f"gam_norm {shape} {dtype}: vs the plain form in float64 max abs "
+                            f"{err:.3e} {'ok' if ok else 'OUT OF TOLERANCE'} (the plain form in "
+                            f"{dtype}: {perr:.3e})")
+            if not ok:
+                raise AssertionError(f"gam_norm {shape} {dtype} disagrees with the plain form")
+            # the plan cuts an image alike in any batch: alone, the same bits
+            if not all(bits_equal(gn.gam_norm(x[i:i + 1].clone())[0], got[i])
+                       for i in (0, GAM_NORM_B - 1)):
+                raise AssertionError(f"gam_norm {shape} {dtype}: an image alone differs from "
+                                     f"itself in the batch")
+            del x, got, want
+        ring = 100_000_000 // nbytes + 1
+        xs = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(ring)]
+        t = three(ring_calls(lambda i: gn.gam_norm(xs[i]), ring),
+                  ring_calls(lambda i: gn.plain(xs[i]), ring),
+                  ring_calls(lambda i: F.instance_norm(xs[i].permute(0, 3, 1, 2)), ring), 10)
+        add("gam_norm", t, 2 * nbytes)
+        bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        log("7 timing", f"gam_norm {shape} bf16, ring of {ring} ({ring * nbytes / 1e6:.0f} MB): "
+                        f"kernel {us(t, 'kernel')}, plain {us(t, 'plain')}, F.instance_norm "
+                        f"{us(t, 'library')} per call; bound {bound * 1e3:.2f} us, "
+                        f"{bound / t['device']['kernel']:.0%} of it [{card}]")
+        del xs
+    for what, shapes in GAM_NORM_ONE.items():
+        tot = {"kernel": 0.0, "plain": 0.0}
+        for h, w, c in shapes:
+            nbytes = h * w * c * 2
+            ring = 100_000_000 // nbytes + 1
+            xs = [torch.randn((1, h, w, c), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(ring)]
+            t = turns({"kernel": ring_calls(lambda i: gn.gam_norm(xs[i]), ring),
+                       "plain": ring_calls(lambda i: gn.plain(xs[i]), ring)}, 10)
+            for k in tot:
+                tot[k] += t["device"][k]
+            log("7 timing", f"gam_norm (1, {h}, {w}, {c}) bf16: kernel {us(t, 'kernel')}, "
+                            f"plain {us(t, 'plain')} per call [{card}]")
+            del xs
+        log("7 timing", f"gam_norm at B=1, {what} ({len(shapes)} maps), device-only: kernel "
+                        f"{tot['kernel']:.4f} ms, plain {tot['plain']:.4f} ms [{card}]")
+    return worst
 
 
 def timing_pad(dev, card: str, gen, three, us) -> dict:
@@ -3348,10 +3442,10 @@ def peak_gib(fn):
 
 
 def strip_counts(s: int, cs: int) -> dict:
-    """One strip forward's launches: C at the entry, B at up1 and up2, D once
-    a chunk of the exit."""
+    """One strip forward's launches: C at the entry, B at up1 and up2, the
+    GAM norm at ga3 .. ga5, D once a chunk of the exit."""
     return {**dict.fromkeys(KERNELS, 0), "s2d_convert": 1, "upsample2x": 2,
-            "residual_tail_d2s": s // cs}
+            "residual_tail_d2s": s // cs, "gam_norm": 3}
 
 
 def write_pth(root: str, sd: dict) -> None:
@@ -3565,7 +3659,8 @@ def phase_highres(dev, card: str, tmp: str) -> dict:
     launches["strips"] = run
     # 2 batches direct (1024 x 704 and 512 x 512 padded, hp < 1024), one strips
     check_counts("--mode test --test_keep_aspect (3 batches)", run, {
-        **dict.fromkeys(KERNELS, 0), "s2d_convert": 3, "upsample2x": 8, "residual_tail_d2s": 3})
+        **dict.fromkeys(KERNELS, 0), "s2d_convert": 3, "upsample2x": 8, "residual_tail_d2s": 3,
+        "gam_norm": 13})
     g32, _ = seeded_generator(torch.float32, dev)
     torch.backends.cudnn.allow_tf32 = False
     worst = math.inf
@@ -3745,7 +3840,7 @@ def phase_serve(dev, card: str, tmp: str) -> dict:
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     rng = np.random.default_rng(SEED + 11)
     zero = dict.fromkeys(KERNELS, 0)
-    fwd = {**zero, "s2d_convert": 1, "residual_tail_d2s": 1, "upsample2x": 3}
+    fwd = {**zero, "s2d_convert": 1, "residual_tail_d2s": 1, "upsample2x": 3, "gam_norm": 5}
     _, sd = seeded_generator(torch.float32, "cpu")
     pth = os.path.join(tmp, "UEGAN-FiveK_rahinge_92.pth")
     torch.save({"G_net": sd, "D_net": {}, "epoch": 92.0, "g_optimizer": {}, "d_optimizer": {},
@@ -3914,8 +4009,8 @@ def phase_serve(dev, card: str, tmp: str) -> dict:
         calls8 = srv.models._enhance_batcher.calls
     finally:
         stop_server(srv)
-    calib = {**zero, "gam_stats": 4, "upsample2x": 3, "s2d_convert": 1}
-    fwd8 = {**fwd, "gam_stats": 4, "packed_conv_int8": 1}
+    calib = {**zero, "gam_stats": 4, "upsample2x": 3, "s2d_convert": 1, "gam_norm": 1}
+    fwd8 = {**fwd, "gam_stats": 4, "packed_conv_int8": 1, "gam_norm": 1}
     check_counts(f"/api/enhance int8_pallas (calibration, {calls8} batched calls)", run8,
                  {k: calib[k] + calls8 * fwd8[k] for k in KERNELS})
     p8 = psnr_u8(out8, first)
@@ -3939,7 +4034,8 @@ def phase_serve(dev, card: str, tmp: str) -> dict:
         note_pads("serve_native")
         check_counts(f"one /api/enhance --keep_aspect {SERVE_NATIVE[0]}x{SERVE_NATIVE[1]} (the "
                      f"strips)", run_n,
-                     {**zero, "s2d_convert": 1, "upsample2x": 2, "residual_tail_d2s": 1})
+                     {**zero, "s2d_convert": 1, "upsample2x": 2, "residual_tail_d2s": 1,
+                      "gam_norm": 3})
         t0 = time.perf_counter()
         enhance(srv)(big_png)
         again_n = time.perf_counter() - t0
@@ -3970,7 +4066,8 @@ OP_KERNELS = {"gam_mean_std": "gam_stats", "gam_mean_std_train": "gam_stats",
               "gam_mean_std_backward": "gam_stats_bwd", "upsample2x": "upsample2x",
               "upsample2x_backward": "upsample2x_bwd", "s2d_convert": "s2d_convert",
               "residual_tail_d2s": "residual_tail_d2s", "packed_conv": "packed_conv",
-              "packed_conv_int8": "packed_conv_int8", "reflect_pad": "reflect_pad"}
+              "packed_conv_int8": "packed_conv_int8", "reflect_pad": "reflect_pad",
+              "gam_norm": "gam_norm"}
 
 # a fresh interpreter for phase 12: load each exported program, run it once
 # on its saved input with the launch counts set to 0, save its output, and
@@ -4035,6 +4132,7 @@ def export_opcheck(dev) -> None:
         "reflect_pad": (cl(2, 128, 128, 128).requires_grad_(),
                         cl(2, 128, 128, 128).requires_grad_(), 1),
         "reflect_pad_backward": (cl(2, 256, 130, 130), 1, 128),
+        "gam_norm": (x, 1e-5),
     }
     for name, args in cases.items():
         result = torch.library.opcheck(getattr(torch.ops.uegan_torch, name).default, args)
@@ -4235,9 +4333,11 @@ def main() -> int:
            "gam_stats_bwd": ("uegan_tpu_torch/csrc/gam_stats_bwd.cu",
                              "uegan_tpu/ops/norms.py:47"),
            "upsample2x_bwd": ("uegan_tpu_torch/csrc/upsample2x.cu",
-                              "uegan_tpu/ops/resize.py:105")}
+                              "uegan_tpu/ops/resize.py:105"),
+           # the GAM's instance norm at inference, which XLA fuses on the TPU
+           "gam_norm": ("uegan_tpu_torch/csrc/norm_act.cu", "uegan_tpu/ops/norms.py:17")}
     err = {"gam_stats": worst["gam_stats"][0], "upsample2x": worst["upsample2x"][0],
-           **worst_s2d, **worst_int8, **worst_bwd}
+           **worst_s2d, **worst_int8, **worst_bwd, "gam_norm": timing["gam_norm_err"]}
     kernels = []
     for name in KERNELS:
         p = timing["per_kernel"][name]

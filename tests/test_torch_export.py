@@ -175,7 +175,7 @@ def exported(tmp_path_factory):
                                   "upsample2x_backward", "gam_mean_std", "gam_mean_std_train",
                                   "gam_mean_std_backward", "packed_conv", "packed_conv_int8",
                                   "packed_conv_int8_requant", "reflect_pad",
-                                  "reflect_pad_two_parts", "reflect_pad_backward"])
+                                  "reflect_pad_two_parts", "reflect_pad_backward", "gam_norm"])
 def test_opcheck_on_the_cpu(name):
     """``torch.library.opcheck`` (schema, autograd registration, the fake
     kernel against the CPU impl, AOT dispatch with dynamic shapes) on each
@@ -207,6 +207,7 @@ def test_opcheck_on_the_cpu(name):
         "reflect_pad_two_parts": (cl(B, 8, 16, 16).requires_grad_(),
                                   cl(B, 8, 16, 16).requires_grad_(), 1),
         "reflect_pad_backward": (cl(B, 16, 18, 18), 1, 8),
+        "gam_norm": (x, 1e-5),
     }
     op = getattr(torch.ops.uegan_torch,
                  name.replace("_requant", "").replace("_two_parts", "")).default
@@ -242,17 +243,19 @@ def test_int8_pallas_program_matches_the_eager_forward(exported):
     np.testing.assert_array_equal(exported["int8"], exported["eager_int8"])
     ops = exported["calls"]["int8"]
     assert ops == {"s2d_convert": 1, "gam_mean_std": 4, "upsample2x": 3,
-                   "packed_conv_int8": 1, "residual_tail_d2s": 1, "reflect_pad": 6}, ops
+                   "packed_conv_int8": 1, "residual_tail_d2s": 1, "reflect_pad": 6,
+                   "gam_norm": 1}, ops
 
 
 def test_exported_graph_calls_the_kernels(exported):
-    """The packed route's program calls C once, B three times, D once and
-    the reflect pad six times (enc3 .. enc5, and dec1 .. dec3 on the two
-    parts of their concat), as the eager forward launches them on a card."""
+    """The packed route's program calls C once, B three times, D once, the
+    reflect pad six times (enc3 .. enc5, and dec1 .. dec3 on the two parts
+    of their concat) and the GAM norm five times (ga1 .. ga5), as the eager
+    forward launches them on a card."""
     for name in ("f32", "u8"):
         ops = exported["calls"][name]
         assert ops == {"s2d_convert": 1, "upsample2x": 3, "residual_tail_d2s": 1,
-                       "reflect_pad": 6}, (name, ops)
+                       "reflect_pad": 6, "gam_norm": 5}, (name, ops)
 
 
 class _Forward(torch.nn.Module):

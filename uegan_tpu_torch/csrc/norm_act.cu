@@ -36,9 +36,11 @@
 //   partials in split order (fixed_sum.cuh, as in gam_stats.cu).  No float
 //   atomics, so a run gives the same bits every time, and the tickets are
 //   left at zero for the next call.
-//   The forward sums x - K and (x - K)^2, K the group's first row: shifted
-//   sums keep the variance's cancellation to the spread of the data, not its
-//   mean, in one read of x.  The backward sums dz and dz * xh.
+//   The forward sums x - K and (x - K)^2, K the mean of the group's first 8
+//   rows: shifted sums keep the variance's cancellation to the spread of the
+//   data, not its mean, in one read of x, and a mean of 8 rows lies nearer
+//   the group's mean than one row does (with the first row alone, an
+//   outlying first pixel cost a float32 y up to 1.4e-5 at hw = 1024).  The backward sums dz and dz * xh.
 // - apply (norm_act_nhwc_apply_kernel, _bwd_apply_kernel): the same grid;
 //   each thread keeps one word of channels for its whole loop, so it works
 //   out their mean, rstd, gamma and beta (and the backward's two sums) once
@@ -47,7 +49,16 @@
 //   or the G groups' sums into dgamma and dbeta (backward), in group order.
 //
 // The apply launches read x a second time; at most of the step's shapes the
-// stats launch has just left much of it in the 50 MB L2.
+// stats launch has just left much of it in the 50 MB L2.  The forward's apply
+// walks each run back to front: the stats blocks, one wave, each walk their
+// run front to back, so when they end the L2 holds the tail of every run,
+// and the apply reads those words first.
+//
+// The GAM's non-affine instance norm at inference (ops/gam_norm.py) is this
+// forward with gamma 1, beta 0, slope 1 and no running statistics: per
+// image, (x - mean) * rsqrt(var + eps), y in x's dtype.  Its caller cuts
+// each image into the runs a batch of 16 gets, whatever the batch, so that
+// an image's sums, and its output, do not depend on the batch it came in.
 
 #include "fixed_sum.cuh"
 
@@ -56,6 +67,7 @@ namespace {
 constexpr int kUnroll = 8;       // words a thread loads before it adds them (one input)
 constexpr int kUnrollBwd = 4;    // the same for the backward's two inputs
 constexpr int kBlocksPerSM = 2;  // the plan's grid is one wave of 2 blocks an SM
+constexpr int kShiftRows = 8;    // rows whose mean shifts the forward's sums
 
 // A block's place in the partition: grid (splits, tiles, groups), a tile
 // of gt words of V channels, kThreads / gt rows side by side.
@@ -80,6 +92,24 @@ struct Place {
   }
 };
 
+// The shifts K of the V channels of a group's word at p (its first row): the
+// mean of the group's first kShiftRows rows, or of all of them where it has
+// fewer.  Every block of the group (V words) and the combine (V = 1) compute
+// it alike, to the bit.
+template <typename T, int V>
+__device__ __forceinline__ void shift_of(const T* p, int c, int64_t rows, float (&K)[V]) {
+  const int n = rows < kShiftRows ? (int)rows : kShiftRows;
+#pragma unroll
+  for (int k = 0; k < V; ++k) K[k] = 0.f;
+  for (int q = 0; q < n; ++q) {
+    const Pack<T, V> w = *reinterpret_cast<const Pack<T, V>*>(p + (int64_t)q * c);
+#pragma unroll
+    for (int k = 0; k < V; ++k) K[k] += to_f32(w.v[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) K[k] /= (float)n;
+}
+
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     norm_act_nhwc_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
@@ -93,11 +123,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 #pragma unroll
   for (int k = 0; k < V; ++k) s1[k] = s2[k] = 0.f;
   if (pl.active) {
-    // the shift K: the group's first row
-    const Pack<T, V> kp = *reinterpret_cast<const Pack<T, V>*>(base + pl.ch);
     float K[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) K[k] = to_f32(kp.v[k]);
+    shift_of<T, V>(base + pl.ch, c, rows, K);
     const int64_t step = (int64_t)pl.lanes;
     for (int64_t p = pl.p0 + pl.r; p < pl.p1; p += step * kUnroll) {
       Pack<T, V> v[kUnroll];
@@ -125,7 +152,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     const float md = a / cnt;
     const float v = fmaxf(b / cnt - md * md, 0.f);
     const int64_t at = (int64_t)pl.grp * c + pl.c0 + j;
-    mean[at] = to_f32(base[pl.c0 + j]) + md;
+    float k0[1];
+    shift_of<T, 1>(base + pl.c0 + j, c, rows, k0);
+    mean[at] = k0[0] + md;
     var[at] = v;
   });
 }
@@ -151,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
       run_var[ch] = (1.f - momentum) * run_var[ch] + momentum * ((b / (float)groups) * unbias);
     }
   }
-  if (!pl.active) return;
+  if (!pl.active || pl.p0 + pl.r >= pl.p1) return;
   float m[V], rs[V], ga[V], be[V];
 #pragma unroll
   for (int k = 0; k < V; ++k) {
@@ -165,7 +194,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   const T* xb = x + off;
   T* yb = y + off;
   const int64_t step = (int64_t)pl.lanes;
-  for (int64_t p = pl.p0 + pl.r; p < pl.p1; p += step * kUnroll) {
+  const int64_t stride = step * kUnroll;
+  // back to front: from the last step the stats loop made in this run to its
+  // first, so the first words read are the ones the stats launch read last
+  for (int64_t p = pl.p0 + pl.r + (pl.p1 - 1 - pl.p0 - pl.r) / stride * stride; p >= pl.p0;
+       p -= stride) {
     Pack<T, V> v[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {

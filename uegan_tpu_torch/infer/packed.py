@@ -37,7 +37,7 @@ from uegan_tpu_torch.models.blocks import to_nchw, to_nhwc
 from uegan_tpu_torch.models.generator import Generator, check_input_hw
 from uegan_tpu_torch.models.initializers import init_weights
 from uegan_tpu_torch.ops.conv_int8 import conv2d_int8
-from uegan_tpu_torch.ops.norms import instance_norm
+from uegan_tpu_torch.ops.gam_norm import gam_norm
 from uegan_tpu_torch.ops.resize2x import upsample2x
 from uegan_tpu_torch.ops.s2d_fuse import (depth_to_space, residual_tail_d2s, s2d_convert,
                                           space_to_depth)
@@ -423,14 +423,11 @@ def packed_gam_stats(xp: torch.Tensor, c: int,
 
 
 def packed_instance_norm(xp: torch.Tensor, c: int, eps: float = 1e-5) -> torch.Tensor:
-    """Non-affine instance norm per ORIGINAL channel (biased var) on packed."""
+    """Non-affine instance norm per ORIGINAL channel (biased var) on packed:
+    ``gam_norm`` of the (N, H/2, W/2 * 4, C) view, whose pixels are the
+    packed pixels' four phases (channels are phase-major), in xp's dtype."""
     n, hp, wp, _ = xp.shape
-    acc = xp.float().reshape(n, hp, wp, 4, c)
-    mean = acc.mean(dim=(1, 2, 3), keepdim=True)
-    sq = (acc * acc).mean(dim=(1, 2, 3), keepdim=True)
-    var = torch.clamp(sq - mean * mean, min=0.0)
-    y = (acc - mean) * torch.rsqrt(var + eps)
-    return y.reshape(n, hp, wp, 4 * c).to(xp.dtype)
+    return gam_norm(xp.contiguous().view(n, hp, wp * 4, c), eps).view(n, hp, wp, 4 * c)
 
 
 def gam_x_weight(gam, dtype: torch.dtype) -> torch.Tensor:
@@ -445,9 +442,9 @@ def gam_norm_eval(x: torch.Tensor, w_x: torch.Tensor) -> torch.Tensor:
     The SE branch (global stats -> squeeze -> relu -> excite) and the fuse
     bias enter the 1x1 fuse conv as per-(image, channel) constants, which the
     non-affine instance norm after it removes (reference: models.py:230-237),
-    so only the x-part of the fuse kernel (:func:`gam_x_weight`) runs.
-    x (N, C, H, W), computed in w_x's dtype."""
-    return instance_norm(F.conv2d(x.to(w_x.dtype), w_x))
+    so only the x-part of the fuse kernel (:func:`gam_x_weight`) runs, and
+    the norm is ``gam_norm``.  x (N, C, H, W), computed in w_x's dtype."""
+    return to_nchw(gam_norm(to_nhwc(F.conv2d(x.to(w_x.dtype), w_x))))
 
 
 # the head's border band: packed rows overwritten with the sequential values

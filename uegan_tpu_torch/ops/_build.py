@@ -250,6 +250,12 @@ def fresh(out: torch.Tensor, *inputs: Optional[torch.Tensor],
     return out
 
 
+def eager_cuda(t: torch.Tensor) -> bool:
+    """Whether a call on t runs eagerly on a card: a real CUDA tensor, not a
+    trace's fake or functional one, and not under ``torch.compile``."""
+    return t.is_cuda and type(t) is torch.Tensor and not torch.compiler.is_compiling()
+
+
 def needs_grad(*tensors) -> bool:
     """Whether autograd would record a call on ``tensors``."""
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)

@@ -16,6 +16,8 @@ autograd through ``_NormAct``, whose backward launches the backward
 kernels; on the CPU the same Function runs the plain versions.  A train step
 makes 81 of these calls (the cell ``g32inbn_train256``), and the host's
 launches hold the step, so each call is one ctypes call of two launches.
+The GAM's non-affine instance norm at inference (ops/gam_norm.py) launches
+the same forward (``_launch``) with weight 1, bias 0 and slope 1.
 
 ``norm_act.launches`` and ``norm_act_backward.launches`` count the calls,
 on the CPU too, so that a CPU step shows the launches a card step makes
@@ -123,9 +125,12 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(shape: torch.Size, dtype: torch.dtype, instance: bool, address: int) -> Plan:
+def _plan(shape: torch.Size, dtype: torch.dtype, instance: bool, address: int,
+          plan_groups: Optional[int] = None) -> Plan:
     """``Plan`` for an (N, C, H, W) map, checked once per shape, dtype, kind
-    and alignment (the pointers or-ed, mod 16)."""
+    and alignment (the pointers or-ed, mod 16).  ``plan_groups``: cut each
+    group into the runs that a map of that many groups gets, whatever the
+    map's own count, so that a group's sums do not depend on it."""
     if len(shape) != 4 or 0 in shape:
         raise ValueError(f"norm_act: expected a non-empty rank-4 NCHW map, got {tuple(shape)}")
     if dtype not in (torch.float32, torch.bfloat16):
@@ -134,7 +139,7 @@ def _plan(shape: torch.Size, dtype: torch.dtype, instance: bool, address: int) -
     c = shape[1]
     if groups > 65535 or groups * rows * c >= 2 ** 62:
         raise ValueError(f"norm_act: {tuple(shape)} is outside the kernel's grid")
-    p = split_plan(groups, rows, c, dtype.itemsize, address)
+    p = split_plan(plan_groups or groups, rows, c, dtype.itemsize, address)
     part = groups * p.splits * 2 * c
     return Plan(0 if dtype == torch.float32 else 1, groups, rows, c, p.vec, p.groups, p.splits,
                 p.chunk, _unbias(cnt), groups * p.tiles, 2 * groups * c + part,
@@ -160,11 +165,12 @@ def split_stats(stats: torch.Tensor, shape: tuple, instance: bool) -> tuple:
 
 def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             running_mean: Optional[torch.Tensor], running_var: Optional[torch.Tensor],
-            instance: bool, slope: float, momentum: float, eps: float) -> tuple:
+            instance: bool, slope: float, momentum: float, eps: float,
+            plan_groups: Optional[int] = None) -> tuple:
     """The forward kernels on a channels-last CUDA map -> (y, stats)."""
     y = torch.empty_like(x, memory_format=CL)
     xp, yp = x.data_ptr(), y.data_ptr()
-    p = _plan(x.shape, x.dtype, instance, (xp | yp) % 16)
+    p = _plan(x.shape, x.dtype, instance, (xp | yp) % 16, plan_groups)
     _check_params(p.c, weight, bias, running_mean, running_var)
     index = x.get_device()
     stream = torch._C._cuda_getCurrentRawStream(index)

@@ -233,12 +233,6 @@ def _channels_last(t: torch.Tensor) -> torch.Tensor:
     return t if t.is_contiguous(memory_format=CL) else t.contiguous(memory_format=CL)
 
 
-def _eager_cuda(t: torch.Tensor) -> bool:
-    """Whether a call on t runs eagerly on a card: a real CUDA tensor, not a
-    trace's fake or functional one, and not under ``torch.compile``."""
-    return t.is_cuda and type(t) is torch.Tensor and not torch.compiler.is_compiling()
-
-
 def _setup(ctx, inputs, output) -> None:
     x, y, pad = inputs
     ctx.pad, ctx.c1, ctx.two = pad, x.shape[1], y is not None
@@ -274,7 +268,7 @@ def reflect_pad(parts: Sequence[torch.Tensor], pad: int) -> torch.Tensor:
         x, y = _channels_last(parts[0]), _channels_last(parts[1])
     else:
         raise ValueError(f"reflect_pad: takes one or two parts, got {len(parts)}")
-    if not _eager_cuda(x):
+    if not _build.eager_cuda(x):
         return reflect_pad_op(x, y, pad)  # the CPU, and a trace, which records the op
     if y is not None and y.get_device() != x.get_device():
         raise ValueError(f"reflect_pad: parts on {x.device} and {y.device}")
@@ -330,7 +324,7 @@ def reflect_pad_backward(dy: torch.Tensor, pad: int, c1: int) -> List[torch.Tens
     takes ``plain_backward``; an eager one on a card launches without the
     dispatcher, as ``reflect_pad`` does."""
     dy = _channels_last(dy)
-    if _eager_cuda(dy):
+    if _build.eager_cuda(dy):
         return _go_backward(dy, pad, c1)
     return reflect_pad_backward_op(dy, pad, c1)
 
