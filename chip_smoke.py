@@ -170,15 +170,21 @@ run with a non-zero exit on failure:
    the device's idle share, and device time in buckets of kernel names;
    every profile of a forward or a train step fails where it holds an aten
    reflect-pad kernel;
-9. NIMA (no kernel of its own: cuDNN convs and a cuBLAS linear layer, as
-   JAX hands them to XLA): the f32 forward at 224 px, batch 16, TF32 off,
-   against the module run on the CPU in float64 (probabilities <= 2e-5);
-   bf16 against f32 (each mean score <= 0.3); images/s of the forward at
-   batch 16 and 128 in bf16 and f32; calc_nima over 64 PNGs of 512 px, its
-   host preparation and device scoring timed apart; train_nima one epoch
-   on a synthetic AVA layout in bf16 and f32 (finite EMD) and ms per train
-   step at 224 px, batch 32; the bf16 forward and the train steps under
-   torch.profiler (busy and idle time, kernels a call).
+9. NIMA (cuDNN convs and a cuBLAS linear layer; in training its 53
+   BatchNorms with their activations on the norm_act pair): the f32
+   forward at 224 px, batch 16, TF32 off, against the module run on the
+   CPU in float64 (probabilities <= 2e-5); bf16 against f32 (each mean
+   score <= 0.3); images/s of the forward at batch 16 and 128 in bf16 and
+   f32; calc_nima over 64 PNGs of 512 px, its host preparation and device
+   scoring timed apart; the norm_act pair at the 53 BN maps at B=128,
+   224 px with each BN's activation (ReLU6, ReLU, none) and flax's biased
+   running variance against its plain form in float64 (``norm_check``);
+   the train step's norm calls (53 forward and 53 backward on the eager
+   step and on the captured one, none on a replay), its CUDA graph's
+   losses and parameters against the eager step's over 4 steps;
+   train_nima one epoch on a synthetic AVA layout in bf16 and f32 (finite
+   EMD) and ms per train step at 224 px, batch 32; the bf16 forward and the
+   train steps under torch.profiler (busy and idle time, kernels a call).
 
 10. high resolution, at the default generator's full width (seeded as in
    phase 4): the strip executor at 2048 px B=2 in float32 with TF32 off
@@ -1347,12 +1353,17 @@ def norm_close(got, want, dtype, scale: float) -> tuple:
     return float(d.max()), bool((d <= tol).all())
 
 
-def norm_check(instance: bool, shape: tuple, dtype, gen, dev, misaligned: bool) -> dict:
+def norm_check(instance: bool, shape: tuple, dtype, gen, dev, misaligned: bool,
+               slope: float = 0.2, cap: float = math.inf, strict: bool = False,
+               unbiased: bool = True) -> dict:
     """One call of the forward and backward kernels against ``plain`` and
     ``plain_backward`` run in float64 on the same inputs: y, the mean and
     variance, the running statistics, dx, dweight and dbias; dx leaves out
-    the elements whose float64 z is within 1e-4 of zero, where the
-    activation's slope may fall either way (counted).  Returns each
+    the elements whose float64 z is within 1e-4 of zero or of ``cap``, where
+    the activation's slope may fall either way (counted).  The activation is
+    the LeakyReLU of the norm layers by default; NIMA's BNs pass ReLU6
+    (slope 0, cap 6), ReLU (slope 0, ``strict``) or none (slope 1), and
+    flax's biased running variance (``unbiased`` False).  Returns each
     output's max |d|; raises where one is over its tolerance, or where a
     second call's bits differ."""
     import torch
@@ -1371,17 +1382,20 @@ def norm_check(instance: bool, shape: tuple, dtype, gen, dev, misaligned: bool) 
     dy = torch.randn(shape, generator=gen, device=dev).to(dtype).contiguous(
         memory_format=torch.channels_last)
     rm, rv = rm0.clone(), rv0.clone()
+    act = dict(cap=cap, unbiased=unbiased)
     with torch.no_grad():
-        y, stats = na._forward(x, wt, b, rm, rv, instance, 0.2, 0.1, 1e-5)
-        y2, _ = na._forward(x, wt, b, rm0.clone(), rv0.clone(), instance, 0.2, 0.1, 1e-5)
+        y, stats = na._forward(x, wt, b, rm, rv, instance, slope, 0.1, 1e-5, **act)
+        y2, _ = na._forward(x, wt, b, rm0.clone(), rv0.clone(), instance, slope, 0.1, 1e-5,
+                            **act)
     mean, var = na.split_stats(stats, shape, instance)
-    dx, dw, db = na.norm_act_backward(dy, x, wt, b, stats, instance, 0.2)
-    dx2, _, _ = na.norm_act_backward(dy, x, wt, b, stats, instance, 0.2)
+    dx, dw, db = na.norm_act_backward(dy, x, wt, b, stats, instance, slope, 1e-5, cap, strict)
+    dx2, _, _ = na.norm_act_backward(dy, x, wt, b, stats, instance, slope, 1e-5, cap, strict)
     d64 = lambda t: t.double()
     rm64, rv64 = d64(rm0), d64(rv0)
-    y64, mean64, var64 = na.plain(d64(x), d64(wt), d64(b), rm64, rv64, instance, 0.2)
+    y64, mean64, var64 = na.plain(d64(x), d64(wt), d64(b), rm64, rv64, instance, slope, 0.1,
+                                  1e-5, cap, unbiased)
     dx64, dw64, db64 = na.plain_backward(d64(dy), d64(x), d64(wt), d64(b), mean64, var64,
-                                         instance, 0.2)
+                                         instance, slope, 1e-5, cap, strict)
     torch.cuda.synchronize()
     if not (bits_equal(y, y2) and bits_equal(dx, dx2)):
         raise AssertionError(f"norm_act {shape} {dtype}: two calls differ in bits")
@@ -1391,12 +1405,14 @@ def norm_check(instance: bool, shape: tuple, dtype, gen, dev, misaligned: bool) 
     gshape = (n, c, 1, 1) if instance else (1, c, 1, 1)
     xh = (d64(x) - mean64.view(gshape)) * torch.rsqrt(var64.view(gshape) + 1e-5)
     z = xh * d64(wt).view(1, -1, 1, 1) + d64(b).view(1, -1, 1, 1)
-    kink = z.abs() < 1e-4
+    at0, atcap = z.abs() < 1e-4, (z - cap).abs() < 1e-4
+    kink = at0 | atcap
     dims = (0, 2, 3)
     mag = (d64(dy).abs() * (xh.abs() + 1)).sum(dim=dims)
     # where the f32 z and the f64 z fall either side of zero, dz differs by
-    # (1 - slope) dy: an element of dbias and dweight may take that much
-    flip = d64(dy).abs() * kink * 0.8
+    # (1 - slope) dy, and either side of the cap by dy: an element of dbias
+    # and dweight may take that much
+    flip = d64(dy).abs() * (at0 * (1 - slope) + atcap)
     allow = {"dweight": (flip * xh.abs()).sum(dim=dims), "dbias": flip.sum(dim=dims)}
     out, bad = {}, []
     for name, got, want, scale, dt in (
@@ -3305,6 +3321,99 @@ def log_nima_profile(what: str, r: dict, card: str) -> None:
                                                         for k, (ms, n) in top) + f" [{card}]")
 
 
+def nima_pair_check(dev, card: str) -> None:
+    """The norm_act pair at NIMA's 53 BN maps (B=128, 224 px, bf16; the
+    first eight in float32 too), each with its BN's activation and flax's
+    biased running variance, against its plain form in float64
+    (``norm_check``)."""
+    import torch
+
+    from portbench.counts import nima as counts
+    from portbench.reference import nima_train as ref
+
+    args = {"relu6": {"slope": 0.0, "cap": 6.0}, "relu": {"slope": 0.0, "strict": True},
+            "none": {"slope": 1.0}}  # models/nima.py:_act_args
+    acts = [args[c.act] for block in ref.blocks() for c in block.convs]
+    maps = counts.bn_maps(224, 128)
+    if len(acts) != 53 or len(maps) != 53:
+        raise AssertionError(f"NIMA: {len(acts)} activations for {len(maps)} BN maps")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    worst, kinks = {}, 0
+    for i, (shape, act) in enumerate(zip(maps, acts)):
+        for dtype in (torch.bfloat16,) + ((torch.float32,) if i < 8 else ()):
+            r = norm_check(False, shape, dtype, gen, dev, False, act["slope"],
+                           act.get("cap", math.inf), act.get("strict", False), False)
+            key = "bf16" if dtype == torch.bfloat16 else "f32"
+            kinks += r.pop("kinks")
+            for k, v in r.items():
+                worst[f"{key} {k}"] = max(worst.get(f"{key} {k}", 0.0), v)
+            torch.cuda.empty_cache()
+    kinds = sorted({(a["slope"], a.get("cap", math.inf), a.get("strict", False)) for a in acts})
+    log("9 nima", f"norm_act at NIMA's 53 BN maps, B=128 224 px (bf16, the first 8 in f32 "
+                  f"too), activations (slope, cap, strict) {kinds}, biased running variance: "
+                  f"within tolerance of float64; {kinks} dx elements at a kink left out; worst "
+                  "|d| " + ", ".join(f"{k} {v:.3e}" for k, v in sorted(worst.items()))
+        + f" [{card}]")
+
+
+def nima_graph_check(dev, card: str, dtype: str) -> None:
+    """NIMA's train step (B=16, 224 px, seeded) with make_nima_optimizer's
+    capturable Adam: 53 forward and 53 backward norm calls on the eager
+    first step and on the captured second one, none on the replays after
+    it; one capture and three replays over 4 steps; the losses and the
+    parameters after them against ``step.eager``'s on a second model from
+    the same seed and the same dropout generator's seed: bit-equal, or,
+    where two eager runs already differ in bits, within twice their gap."""
+    import torch
+
+    from uegan_tpu_torch.metrics.nima import init_nima
+    from uegan_tpu_torch.nima_train.train import make_nima_optimizer, make_nima_train_step
+    from uegan_tpu_torch.ops import norm_act as na
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    xs = [torch.rand((16, 224, 224, 3), generator=gen, device=dev) for _ in range(4)]
+    ts = [torch.softmax(torch.randn((16, 10), generator=gen, device=dev), -1) for _ in range(4)]
+
+    def run(graph: bool):
+        model = init_nima(rng_seed=SEED, compute_dtype=dtype, device=dev)
+        step = make_nima_train_step(model, make_nima_optimizer(model, 3e-4),
+                                    torch.Generator(device=dev).manual_seed(SEED + 91))
+        fn = step if graph else step.eager
+        losses, calls = [], []
+        for x, t in zip(xs, ts):
+            before = (na.norm_act.launches, na.norm_act_backward.launches)
+            losses.append(fn(x, t).clone())
+            calls.append((na.norm_act.launches - before[0],
+                          na.norm_act_backward.launches - before[1]))
+        torch.cuda.synchronize()
+        params = [p.detach().clone() for p in model.parameters()]
+        return torch.stack(losses), params, calls, (step.captures, step.replays)
+
+    g_loss, g_params, g_calls, counters = run(True)
+    e_loss, e_params, e_calls, _ = run(False)
+    e2_loss, e2_params, _, _ = run(False)
+    if g_calls != [(53, 53), (53, 53), (0, 0), (0, 0)] or e_calls != [(53, 53)] * 4 \
+            or counters != (1, 3):
+        raise AssertionError(f"NIMA train step {dtype}: norm calls a step {g_calls} (graph), "
+                             f"{e_calls} (eager); (captures, replays) {counters}")
+
+    def gap(a, b, pa, pb):
+        return max([float(((a - b).abs() / b.abs()).max())]
+                   + [float((p - q).abs().max() / q.abs().max().clamp_min(1e-30))
+                      for p, q in zip(pa, pb)])
+
+    same = bits_equal(g_loss, e_loss) and all(bits_equal(p, q) for p, q in zip(g_params, e_params))
+    eager_gap = gap(e2_loss, e_loss, e2_params, e_params)
+    graph_gap = gap(g_loss, e_loss, g_params, e_params)
+    log("9 nima", f"train step 224 px B=16 {dtype}: norm calls (forward, backward) a step "
+                  f"{g_calls} (eager, capture, replay, replay), (captures, replays) {counters}; "
+                  f"graph against eager over 4 steps: bit-equal {same}, largest relative gap "
+                  f"{graph_gap:.3e} (two eager runs {eager_gap:.3e}) [{card}]")
+    if not same and graph_gap > 2 * eager_gap:
+        raise AssertionError(f"NIMA train step {dtype}: the graph's steps differ from the "
+                             f"eager ones by {graph_gap:.3e}, two eager runs by {eager_gap:.3e}")
+
+
 def phase_nima(dev, card: str, tmp: str) -> None:
     """NIMA (MobileNetV2, 224 px; the scorer behind the default ``--mode
     test`` and ``--mode train``, seeded weights) on the card:
@@ -3331,7 +3440,8 @@ def phase_nima(dev, card: str, tmp: str) -> None:
 
     from uegan_tpu_torch.metrics.nima import calc_nima, init_nima, load_images, nima_scores
     from uegan_tpu_torch.models.nima import NIMA, score_stats
-    from uegan_tpu_torch.nima_train.train import make_nima_train_step, train_nima
+    from uegan_tpu_torch.nima_train.train import (make_nima_optimizer, make_nima_train_step,
+                                                  train_nima)
     from uegan_tpu_torch.utils.image_io import save_image
 
     rng = np.random.default_rng(SEED)
@@ -3395,6 +3505,10 @@ def phase_nima(dev, card: str, tmp: str) -> None:
                   f"device scoring alone (copy in, forward, stats out) {device:.3f} s; average "
                   f"{avg:.4f} [{card}]")
 
+    nima_pair_check(dev, card)
+    for dtype in ("bfloat16", "float32"):
+        nima_graph_check(dev, card, dtype)
+
     train_csv, val_csv, _ = write_ava(os.path.join(tmp, "ava"), 112, rng)
     for dtype in ("bfloat16", "float32"):
         t0 = time.time()
@@ -3405,8 +3519,8 @@ def phase_nima(dev, card: str, tmp: str) -> None:
                 os.path.join(out, "nima_best.pth"))):
             raise AssertionError(f"train_nima {dtype}: {hist}")
         model = init_nima(compute_dtype=dtype, device=dev)
-        opt = torch.optim.Adam(model.parameters(), lr=3e-4, eps=1e-8)
-        step = make_nima_train_step(model, opt, torch.Generator(device=dev).manual_seed(SEED))
+        step = make_nima_train_step(model, make_nima_optimizer(model, 3e-4),
+                                    torch.Generator(device=dev).manual_seed(SEED))
         xb = torch.rand((32, 224, 224, 3), device=dev)
         tb = torch.softmax(torch.randn((32, 10), device=dev), -1)
         losses = [float(step(xb, tb)) for _ in range(2)]

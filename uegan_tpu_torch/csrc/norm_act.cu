@@ -3,16 +3,23 @@
 //
 // JAX's uegan_tpu/models/blocks.py:NormLayer (train=True) followed by the
 // block's LeakyReLU, which XLA fuses on the TPU; the port's G and D blocks
-// run conv -> norm -> act as one call of this pair.  A map is read as G
+// run conv -> norm -> act as one call of this pair, and so do NIMA's 53
+// train-mode BatchNorms (flax's, uegan_tpu/models/nima.py) with their ReLU6,
+// ReLU or no activation.  A map is read as G
 // groups of `rows` pixels of C channels: instance norm takes one group an
 // image (G = N, rows = H*W), batch norm one group for the batch (G = 1,
 // rows = N*H*W), so one kernel serves both.  Per (group, channel), in f32:
 //   forward:  mean, var = the mean and the biased variance over the group
 //             z = (x - mean) * rsqrt(var + eps) * gamma + beta
-//             y = z >= 0 ? z : slope * z          (slope 1: no activation)
+//             y = z >= 0 ? min(z, cap) : slope * z  (slope 1, cap inf: no activation;
+//                                                    slope 0, cap 6: ReLU6)
 //             running_mean = (1 - m) running_mean + m * mean_G(mean)
-//             running_var  = (1 - m) running_var + m * mean_G(var) * cnt / max(cnt - 1, 1)
-//   backward: dz = dy where z >= 0, else slope * dy (z recomputed from x)
+//             running_var  = (1 - m) running_var + m * mean_G(var) * unbias
+//                            (unbias cnt / max(cnt - 1, 1), or 1 for flax's rule)
+//   backward: dz = 0 where z > cap, dy where 0 < z <= cap, slope * dy where
+//             z < 0; at z == 0 dy, or slope * dy under `strict` (F.relu's
+//             rule; torch.clamp's and jnp.where(z >= 0)'s pass dy there)
+//             (z recomputed from x)
 //             xh = (x - mean) * rstd
 //             dx = gamma * rstd * (dz - sum(dz) / cnt - xh * sum(dz * xh) / cnt)
 //             dgamma = sum over every row of dz * xh, dbeta of dz
@@ -60,6 +67,8 @@
 // each image into the runs a batch of 16 gets, whatever the batch, so that
 // an image's sums, and its output, do not depend on the batch it came in.
 
+#include <cmath>
+
 #include "fixed_sum.cuh"
 
 namespace {
@@ -68,6 +77,29 @@ constexpr int kUnroll = 8;       // words a thread loads before it adds them (on
 constexpr int kUnrollBwd = 4;    // the same for the backward's two inputs
 constexpr int kBlocksPerSM = 2;  // the plan's grid is one wave of 2 blocks an SM
 constexpr int kShiftRows = 8;    // rows whose mean shifts the forward's sums
+
+// The activation at z, and its derivative at z times g: see the header.
+// Clamp false (cap inf, strict 0: the LeakyReLU and no activation) takes the
+// one-compare forms; the kernels are built for both, so the norm layers'
+// and the GAM norm's calls run no instruction of the clamp.
+template <bool Clamp>
+__device__ __forceinline__ float act(float z, float slope, float cap) {
+  if constexpr (Clamp) {
+    return z >= 0.f ? fminf(z, cap) : slope * z;
+  } else {
+    return z >= 0.f ? z : slope * z;
+  }
+}
+
+template <bool Clamp>
+__device__ __forceinline__ float act_grad(float z, float g, float slope, float cap, int strict) {
+  if constexpr (Clamp) {
+    if (z > cap) return 0.f;
+    return (z > 0.f || (z == 0.f && !strict)) ? g : slope * g;
+  } else {
+    return z >= 0.f ? g : slope * g;
+  }
+}
 
 // A block's place in the partition: grid (splits, tiles, groups), a tile
 // of gt words of V channels, kThreads / gt rows side by side.
@@ -159,14 +191,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   });
 }
 
-template <typename T, int V>
+template <typename T, int V, bool Clamp>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     norm_act_nhwc_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
                                const float* __restrict__ mean, const float* __restrict__ var,
                                const float* __restrict__ gamma, const float* __restrict__ beta,
                                float* __restrict__ run_mean, float* __restrict__ run_var,
                                int64_t rows, int c, int gt, int64_t chunk, int groups, float eps,
-                               float slope, float momentum, float unbias) {
+                               float slope, float momentum, float unbias, float cap) {
   const Place pl(rows, c, gt, chunk, V);
   if (run_mean != nullptr && blockIdx.x == 0 && blockIdx.z == 0) {
     for (int j = threadIdx.x; j < pl.cb; j += kThreads) {
@@ -214,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
         for (int k = 0; k < V; ++k) {
           const float xh = (to_f32(v[u].v[k]) - m[k]) * rs[k];
           const float z = fmaf(xh, ga[k], be[k]);
-          o.v[k] = from_f32<T>(z >= 0.f ? z : slope * z);
+          o.v[k] = from_f32<T>(act<Clamp>(z, slope, cap));
         }
         store_once(reinterpret_cast<Pack<T, V>*>(yb + q * c), o);
       }
@@ -222,7 +254,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   }
 }
 
-template <typename T, int V>
+template <typename T, int V, bool Clamp>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     norm_act_nhwc_bwd_stats_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                                    const float* __restrict__ mean,
@@ -231,7 +263,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
                                    const float* __restrict__ beta, float* __restrict__ part,
                                    unsigned* __restrict__ ticket, float* __restrict__ sdz,
                                    float* __restrict__ sdzx, int64_t rows, int c, int gt,
-                                   int64_t chunk, float eps, float slope) {
+                                   int64_t chunk, float eps, float slope, float cap,
+                                   int strict) {
   __shared__ float sh[2][kThreads * V];
   const Place pl(rows, c, gt, chunk, V);
   float s1[V], s2[V];
@@ -269,7 +302,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
             const float xh = (to_f32(xv[u].v[k]) - m[k]) * rs[k];
             const float z = fmaf(xh, ga[k], be[k]);
             const float g = to_f32(dv[u].v[k]);
-            const float dz = z >= 0.f ? g : slope * g;
+            const float dz = act_grad<Clamp>(z, g, slope, cap, strict);
             s1[k] += dz;
             s2[k] = fmaf(dz, xh, s2[k]);
           }
@@ -285,7 +318,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   });
 }
 
-template <typename T, int V>
+template <typename T, int V, bool Clamp>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     norm_act_nhwc_bwd_apply_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                                    T* __restrict__ dx, const float* __restrict__ mean,
@@ -295,7 +328,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
                                    const float* __restrict__ sdz,
                                    const float* __restrict__ sdzx, float* __restrict__ dgamma,
                                    float* __restrict__ dbeta, int64_t rows, int c, int gt,
-                                   int64_t chunk, int groups, float eps, float slope) {
+                                   int64_t chunk, int groups, float eps, float slope,
+                                   float cap, int strict) {
   const Place pl(rows, c, gt, chunk, V);
   if (blockIdx.x == 0 && blockIdx.z == 0) {
     for (int j = threadIdx.x; j < pl.cb; j += kThreads) {
@@ -348,7 +382,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
           const float xh = (to_f32(xv[u].v[k]) - m[k]) * rs[k];
           const float z = fmaf(xh, ga[k], be[k]);
           const float g = to_f32(dv[u].v[k]);
-          const float dz = z >= 0.f ? g : slope * g;
+          const float dz = act_grad<Clamp>(z, g, slope, cap, strict);
           o.v[k] = from_f32<T>(kk[k] * (dz - m1[k] - xh * m2[k]));
         }
         store_once(reinterpret_cast<Pack<T, V>*>(ob + q * c), o);
@@ -361,45 +395,46 @@ struct Args {
   int64_t groups, rows, c, gt, splits, chunk;
 };
 
-template <typename T, int V>
+template <typename T, int V, bool Clamp>
 int launch_fwd(const Args& a, const void* x, void* y, void* part, void* ticket, void* mean,
                void* var, const void* gamma, const void* beta, void* run_mean, void* run_var,
-               float eps, float slope, float momentum, float unbias, cudaStream_t s) {
+               float eps, float slope, float momentum, float unbias, float cap,
+               cudaStream_t s) {
   const int64_t tiles = (a.c + a.gt * V - 1) / (a.gt * V);
   const dim3 grid((unsigned)a.splits, (unsigned)tiles, (unsigned)a.groups);
   norm_act_nhwc_stats_kernel<T, V><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<float*>(part), static_cast<unsigned*>(ticket),
       static_cast<float*>(mean), static_cast<float*>(var), a.rows, (int)a.c, (int)a.gt,
       a.chunk);
-  norm_act_nhwc_apply_kernel<T, V><<<grid, kThreads, 0, s>>>(
+  norm_act_nhwc_apply_kernel<T, V, Clamp><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<T*>(y), static_cast<const float*>(mean),
       static_cast<const float*>(var), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<float*>(run_mean),
       static_cast<float*>(run_var), a.rows, (int)a.c, (int)a.gt, a.chunk, (int)a.groups, eps,
-      slope, momentum, unbias);
+      slope, momentum, unbias, cap);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int V>
+template <typename T, int V, bool Clamp>
 int launch_bwd(const Args& a, const void* dy, const void* x, void* dx, void* part, void* ticket,
                const void* mean, const void* var, const void* gamma, const void* beta,
                void* sdz, void* sdzx, void* dgamma, void* dbeta, float eps, float slope,
-               cudaStream_t s) {
+               float cap, int strict, cudaStream_t s) {
   const int64_t tiles = (a.c + a.gt * V - 1) / (a.gt * V);
   const dim3 grid((unsigned)a.splits, (unsigned)tiles, (unsigned)a.groups);
-  norm_act_nhwc_bwd_stats_kernel<T, V><<<grid, kThreads, 0, s>>>(
+  norm_act_nhwc_bwd_stats_kernel<T, V, Clamp><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(dy), static_cast<const T*>(x), static_cast<const float*>(mean),
       static_cast<const float*>(var), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<float*>(part), static_cast<unsigned*>(ticket),
       static_cast<float*>(sdz), static_cast<float*>(sdzx), a.rows, (int)a.c, (int)a.gt,
-      a.chunk, eps, slope);
-  norm_act_nhwc_bwd_apply_kernel<T, V><<<grid, kThreads, 0, s>>>(
+      a.chunk, eps, slope, cap, strict);
+  norm_act_nhwc_bwd_apply_kernel<T, V, Clamp><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(dy), static_cast<const T*>(x), static_cast<T*>(dx),
       static_cast<const float*>(mean), static_cast<const float*>(var),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<const float*>(sdz), static_cast<const float*>(sdzx),
       static_cast<float*>(dgamma), static_cast<float*>(dbeta), a.rows, (int)a.c, (int)a.gt,
-      a.chunk, (int)a.groups, eps, slope);
+      a.chunk, (int)a.groups, eps, slope, cap, strict);
   return (int)cudaGetLastError();
 }
 
@@ -417,11 +452,13 @@ int launch_bwd(const Args& a, const void* dy, const void* x, void* dx, void* par
 template <typename T>
 int fwd_vec(int vec, const Args& a, const void* x, void* y, void* part, void* ticket,
             void* mean, void* var, const void* gamma, const void* beta, void* run_mean,
-            void* run_var, float eps, float slope, float momentum, float unbias,
+            void* run_var, float eps, float slope, float momentum, float unbias, float cap,
             cudaStream_t s) {
 #define UEGAN_NORM_FWD(TT, V)                                                                  \
-  launch_fwd<TT, V>(a, x, y, part, ticket, mean, var, gamma, beta, run_mean, run_var, eps,    \
-                    slope, momentum, unbias, s)
+  (std::isinf(cap) ? launch_fwd<TT, V, false>(a, x, y, part, ticket, mean, var, gamma, beta,         \
+                                         run_mean, run_var, eps, slope, momentum, unbias, cap, s) \
+              : launch_fwd<TT, V, true>(a, x, y, part, ticket, mean, var, gamma, beta,          \
+                                        run_mean, run_var, eps, slope, momentum, unbias, cap, s))
   UEGAN_NORM_DISPATCH(T, vec, UEGAN_NORM_FWD)
 #undef UEGAN_NORM_FWD
   return (int)cudaErrorInvalidValue;
@@ -431,10 +468,13 @@ template <typename T>
 int bwd_vec(int vec, const Args& a, const void* dy, const void* x, void* dx, void* part,
             void* ticket, const void* mean, const void* var, const void* gamma,
             const void* beta, void* sdz, void* sdzx, void* dgamma, void* dbeta, float eps,
-            float slope, cudaStream_t s) {
+            float slope, float cap, int strict, cudaStream_t s) {
 #define UEGAN_NORM_BWD(TT, V)                                                                  \
-  launch_bwd<TT, V>(a, dy, x, dx, part, ticket, mean, var, gamma, beta, sdz, sdzx, dgamma,    \
-                    dbeta, eps, slope, s)
+  (std::isinf(cap) && !strict                                                                       \
+       ? launch_bwd<TT, V, false>(a, dy, x, dx, part, ticket, mean, var, gamma, beta, sdz,     \
+                                  sdzx, dgamma, dbeta, eps, slope, cap, strict, s)             \
+       : launch_bwd<TT, V, true>(a, dy, x, dx, part, ticket, mean, var, gamma, beta, sdz,      \
+                                 sdzx, dgamma, dbeta, eps, slope, cap, strict, s))
   UEGAN_NORM_DISPATCH(T, vec, UEGAN_NORM_BWD)
 #undef UEGAN_NORM_BWD
   return (int)cudaErrorInvalidValue;
@@ -455,43 +495,47 @@ bool bad_args(const Args& a) {
 // vec)) zeroed unsigned counters, left zeroed.  mean, var: (groups, c)
 // float32 outputs (the biased variance); gamma, beta: c float32.  run_mean,
 // run_var: c float32, updated in place with `momentum` (var times `unbias`,
-// cnt / max(cnt - 1, 1)), or both null.  slope: the LeakyReLU's (1 for
-// none).  Returns the cudaError_t of the launches (0 on success).
+// cnt / max(cnt - 1, 1), or 1), or both null.  slope: the LeakyReLU's (1
+// for none); cap: the upper clamp (ReLU6's 6; inf for none).  Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int uegan_norm_act(const void* x, void* y, void* part, void* ticket, void* mean,
                               void* var, const void* gamma, const void* beta, void* run_mean,
                               void* run_var, int dtype, int64_t groups, int64_t rows, int64_t c,
                               int vec, int64_t gt, int64_t splits, int64_t chunk, float eps,
-                              float slope, float momentum, float unbias, void* stream) {
+                              float slope, float momentum, float unbias, float cap,
+                              void* stream) {
   const Args a{groups, rows, c, gt, splits, chunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_args(a) || (run_mean == nullptr) != (run_var == nullptr))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return fwd_vec<float>(vec, a, x, y, part, ticket, mean, var, gamma, beta, run_mean, run_var,
-                          eps, slope, momentum, unbias, s);
+                          eps, slope, momentum, unbias, cap, s);
   if (dtype == 1)
     return fwd_vec<__nv_bfloat16>(vec, a, x, y, part, ticket, mean, var, gamma, beta, run_mean,
-                                  run_var, eps, slope, momentum, unbias, s);
+                                  run_var, eps, slope, momentum, unbias, cap, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The backward: dy, x, dx as x above; mean, var the forward's; sdz, sdzx:
 // (groups, c) float32 scratch (each group's sums of dz and dz * xh); dgamma,
-// dbeta: c float32 outputs.
+// dbeta: c float32 outputs; slope, cap as the forward's; strict: 1 for
+// F.relu's derivative at z == 0 (slope * dy), 0 for dy there.
 extern "C" int uegan_norm_act_bwd(const void* dy, const void* x, void* dx, void* part,
                                   void* ticket, const void* mean, const void* var,
                                   const void* gamma, const void* beta, void* sdz, void* sdzx,
                                   void* dgamma, void* dbeta, int dtype, int64_t groups,
                                   int64_t rows, int64_t c, int vec, int64_t gt, int64_t splits,
-                                  int64_t chunk, float eps, float slope, void* stream) {
+                                  int64_t chunk, float eps, float slope, float cap, int strict,
+                                  void* stream) {
   const Args a{groups, rows, c, gt, splits, chunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_args(a)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return bwd_vec<float>(vec, a, dy, x, dx, part, ticket, mean, var, gamma, beta, sdz, sdzx,
-                          dgamma, dbeta, eps, slope, s);
+                          dgamma, dbeta, eps, slope, cap, strict, s);
   if (dtype == 1)
     return bwd_vec<__nv_bfloat16>(vec, a, dy, x, dx, part, ticket, mean, var, gamma, beta, sdz,
-                                  sdzx, dgamma, dbeta, eps, slope, s);
+                                  sdzx, dgamma, dbeta, eps, slope, cap, strict, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,16 +12,20 @@ conv and ``head.2`` the linear layer; so a reference ``pretrain-model.pth``
 loads (``load_reference``) and ``save_nima_pth`` writes one.
 
 The forward follows the JAX module's numerics rather than torch's modules:
-each conv runs in ``dtype`` with f32 parameters; BatchNorm runs in f32 (in
-training on the batch's biased variance E[y^2] - E[y]^2, with the running
-averages moved by flax's momentum 0.9, the biased variance included); the
-activation (ReLU for the stem and the head conv, ReLU6 inside the blocks,
-none after pw_linear) follows and the result is cast back to ``dtype``; the
-global pool sums in f32; the linear layer runs in ``dtype`` and the softmax
-in f32.  In float32 the convs and the linear layer run with TF32 off, the
-counterpart of JAX's ``Precision.HIGHEST``.  Without weights the trunk is
-seeded from a ``torch.Generator`` with the distributions of the JAX
-module's init, not its values.
+each conv runs in ``dtype`` with f32 parameters; BatchNorm runs in f32 and
+the activation (ReLU for the stem and the head conv, ReLU6 inside the
+blocks, none after pw_linear) follows before the result is cast back to
+``dtype``.  In training each BatchNorm and its activation are one call of
+``ops/norm_act.py:norm_act`` (the hand-written kernel pair on a card): the
+batch's mean and biased variance normalize, and the running averages move
+by flax's momentum 0.9 with the biased variance; ReLU6 and ReLU keep the
+derivatives of torch.clamp and F.relu.  In eval mode the running statistics
+normalize (``batch_norm``).  The global pool sums in f32; the linear layer
+runs in ``dtype`` and the softmax in f32.  In float32 the convs and the
+linear layer run with TF32 off, the counterpart of JAX's
+``Precision.HIGHEST``.  Without weights the trunk is seeded from a
+``torch.Generator`` with the distributions of the JAX module's init, not
+its values.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from uegan_tpu_torch.ops.conv import exact_f32
+from uegan_tpu_torch.ops.norm_act import norm_act
 from uegan_tpu_torch.ops.pooling import avg_pool
 
 # (expand_ratio t, out_channels c, repeats n, stride s)
@@ -71,33 +76,42 @@ class InvertedResidual(nn.Module):
                                   *_conv_bn(hidden, cout, 1, 1))
 
 
-def batch_norm(y: torch.Tensor, bn: nn.BatchNorm2d, train: bool) -> torch.Tensor:
-    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` of NCHW ``y``, computed
-    in f32 (f64 for f64); in training the batch's biased variance normalizes
-    and enters the running average."""
+def batch_norm(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """flax ``BatchNorm(use_running_average=True, epsilon=1e-5)`` of NCHW
+    ``y``, computed in f32 (f64 for f64)."""
     acc = torch.promote_types(y.dtype, torch.float32)
     y = y.to(acc)
-    if train:
-        mean = y.mean((0, 2, 3))
-        var = torch.clamp((y * y).mean((0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean.float())
-            bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var.float())
-    else:
-        mean, var = bn.running_mean.to(acc), bn.running_var.to(acc)
+    mean, var = bn.running_mean.to(acc), bn.running_var.to(acc)
     mul = torch.rsqrt(var + bn.eps) * bn.weight.to(acc)
     return (y - mean[:, None, None]) * mul[:, None, None] + bn.bias.to(acc)[:, None, None]
 
 
+def _act_args(act: Optional[nn.Module]) -> dict:
+    """``norm_act``'s activation for the module after a BN: ReLU6 (torch.clamp
+    to [0, 6], whose derivative passes at both ends), ReLU (F.relu's, none at
+    0) or none."""
+    if isinstance(act, nn.ReLU6):
+        return {"slope": 0.0, "cap": 6.0}
+    if isinstance(act, nn.ReLU):
+        return {"slope": 0.0, "strict": True}
+    return {"slope": 1.0}
+
+
 def _run(layers: nn.Sequential, x: torch.Tensor, dtype: torch.dtype, train: bool) -> torch.Tensor:
-    """conv -> BN -> [ReLU | ReLU6] -> cast, for each conv of ``layers``."""
+    """conv -> BN -> [ReLU | ReLU6] -> cast, for each conv of ``layers``;
+    in training BN and activation are one ``norm_act`` call."""
     mods = list(layers)
     for i, m in enumerate(mods):
         if not isinstance(m, nn.Conv2d):
             continue
         y = F.conv2d(x.to(dtype), m.weight.to(dtype), None, m.stride, m.padding, 1, m.groups)
-        y = batch_norm(y, mods[i + 1], train)
+        bn = mods[i + 1]
         act = mods[i + 2] if i + 2 < len(mods) else None
+        if train:
+            x = norm_act(y, bn.weight, bn.bias, bn.running_mean, bn.running_var, False,
+                         momentum=1 - BN_MOMENTUM, eps=bn.eps, unbiased=False, **_act_args(act))
+            continue
+        y = batch_norm(y, bn)
         if isinstance(act, nn.ReLU6):
             y = torch.clamp(y, 0.0, 6.0)
         elif isinstance(act, nn.ReLU):

@@ -77,13 +77,13 @@ _SIGNATURES = {
     "uegan_reflect_pad_bwd": [_P, _P, _P, ctypes.c_int, _I64, _I64, _I64, _I64, _I64, _I64,
                               ctypes.c_int, _P],
     # x, y, part, ticket, mean, var, gamma, beta, run_mean, run_var, dtype, groups, rows, c,
-    # vec, gt, splits, chunk, eps, slope, momentum, unbias, stream
+    # vec, gt, splits, chunk, eps, slope, momentum, unbias, cap, stream
     "uegan_norm_act": [_P] * 10 + [ctypes.c_int, _I64, _I64, _I64, ctypes.c_int, _I64, _I64,
-                                   _I64] + [ctypes.c_float] * 4 + [_P],
+                                   _I64] + [ctypes.c_float] * 5 + [_P],
     # dy, x, dx, part, ticket, mean, var, gamma, beta, sdz, sdzx, dgamma, dbeta, dtype,
-    # groups, rows, c, vec, gt, splits, chunk, eps, slope, stream
+    # groups, rows, c, vec, gt, splits, chunk, eps, slope, cap, strict, stream
     "uegan_norm_act_bwd": [_P] * 13 + [ctypes.c_int, _I64, _I64, _I64, ctypes.c_int, _I64, _I64,
-                                       _I64, ctypes.c_float, ctypes.c_float, _P],
+                                       _I64] + [ctypes.c_float] * 3 + [ctypes.c_int, _P],
 }
 ACTS = {"none": 0, "leaky": 1, "tanh": 2}  # the C entry points' act argument
 # codes past the CUDA runtime's that the tensor-core body returns

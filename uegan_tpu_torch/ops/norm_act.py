@@ -1,4 +1,4 @@
-"""Train-mode BatchNorm / InstanceNorm with the block's LeakyReLU folded in.
+"""Train-mode BatchNorm / InstanceNorm with the block's activation folded in.
 
 The forward and backward kernels (csrc/norm_act.cu; the design note is in
 its header) normalize a conv's output with its own statistics, apply the
@@ -6,7 +6,11 @@ affine weight and bias and the activation, and update the running
 statistics on the card, as JAX's ``uegan_tpu/models/blocks.py:NormLayer``
 does with ``train=True`` (momentum 0.1, eps 1e-5, the biased variance to
 normalize, the unbiased one into ``running_var``; under instance norm the
-running statistics take the mean over the images).  ``plain`` and
+running statistics take the mean over the images).  The activation is a
+LeakyReLU of negative ``slope`` (1: none) capped at ``cap``: NIMA's
+train-mode BatchNorms (models/nima.py, flax's rule: the biased variance into
+``running_var``, ``unbiased=False``) take ReLU6 (slope 0, cap 6) and ReLU
+(slope 0, ``strict``: F.relu's zero derivative at 0).  ``plain`` and
 ``plain_backward`` are the same functions in PyTorch, which the CPU runs.
 
 Tensors are NCHW in ``torch.channels_last`` memory, as the port's
@@ -14,8 +18,9 @@ activations are.  The norm runs only in training, which nothing exports,
 so it is no ``torch.library`` op: a call on a card launches directly, under
 autograd through ``_NormAct``, whose backward launches the backward
 kernels; on the CPU the same Function runs the plain versions.  A train step
-makes 81 of these calls (the cell ``g32inbn_train256``), and the host's
-launches hold the step, so each call is one ctypes call of two launches.
+makes 81 of these calls (the cell ``g32inbn_train256``), a NIMA train
+step 53 forward and 53 backward (``nima_train224_b128``), and the host's
+launches can hold a step, so each call is one ctypes call of two launches.
 The GAM's non-affine instance norm at inference (ops/gam_norm.py) launches
 the same forward (``_launch``) with weight 1, bias 0 and slope 1.
 
@@ -28,6 +33,7 @@ on the CPU too, so that a CPU step shows the launches a card step makes
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -48,27 +54,44 @@ def _unbias(cnt: int) -> float:
     return cnt / max(cnt - 1, 1)
 
 
+def _act(z: torch.Tensor, slope: float, cap: float) -> torch.Tensor:
+    return torch.where(z >= 0, z.clamp(max=cap), z * slope)
+
+
+def _act_grad(z: torch.Tensor, g: torch.Tensor, slope: float, cap: float,
+              strict: bool) -> torch.Tensor:
+    """g times the activation's derivative at z: 0 above ``cap``, 1 on
+    (0, cap], ``slope`` below 0, and at 0 itself ``slope`` if ``strict``
+    (F.relu's rule), else 1 (torch.clamp's and jnp.where(z >= 0)'s)."""
+    up = (z > 0) if strict else (z >= 0)
+    return torch.where(z > cap, torch.zeros_like(g), torch.where(up, g, g * slope))
+
+
 def plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
           running_mean: Optional[torch.Tensor], running_var: Optional[torch.Tensor],
-          instance: bool, slope: float = 1.0, momentum: float = 0.1,
-          eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The forward in PyTorch: x (N, C, H, W) -> y = leaky(((x - mean) *
-    rsqrt(var + eps)) * weight + bias) in x.dtype, and the mean and the
-    biased variance, each (G, C) with G = N (instance) or 1 (batch), in f32
-    (f64 for f64 x), the two-pass statistics of JAX's NormLayer.  The
-    running statistics, when given, are updated in place."""
+          instance: bool, slope: float = 1.0, momentum: float = 0.1, eps: float = 1e-5,
+          cap: float = math.inf,
+          unbiased: bool = True) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward in PyTorch: x (N, C, H, W) -> y = act(((x - mean) *
+    rsqrt(var + eps)) * weight + bias) in x.dtype, act(z) = min(z, cap) for
+    z >= 0 and slope * z below, and the mean and the biased variance, each
+    (G, C) with G = N (instance) or 1 (batch), in f32 (f64 for f64 x), the
+    two-pass statistics of JAX's NormLayer.  The running statistics, when
+    given, are updated in place, ``running_var`` with the unbiased variance
+    (torch's and JAX's NormLayer's rule) or, ``unbiased`` false, the biased
+    one (flax's BatchNorm)."""
     acc = x.to(torch.promote_types(x.dtype, torch.float32))
     dims = (2, 3) if instance else (0, 2, 3)
     mean = acc.mean(dim=dims, keepdim=True)
     var = torch.square(acc - mean).mean(dim=dims, keepdim=True)
     z = (acc - mean) * torch.rsqrt(var + eps) * weight.view(1, -1, 1, 1).to(acc.dtype) \
         + bias.view(1, -1, 1, 1).to(acc.dtype)
-    y = torch.where(z >= 0, z, z * slope).to(x.dtype)
+    y = _act(z, slope, cap).to(x.dtype)
     groups, _, cnt = _groups(tuple(x.shape), instance)
     mean, var = mean.reshape(groups, -1), var.reshape(groups, -1)
     if running_mean is not None:
         with torch.no_grad():
-            run_var = var.mean(dim=0) * cnt / max(cnt - 1, 1)
+            run_var = var.mean(dim=0) * (_unbias(cnt) if unbiased else 1.0)
             running_mean.copy_((1 - momentum) * running_mean
                                + momentum * mean.mean(dim=0).to(running_mean.dtype))
             running_var.copy_((1 - momentum) * running_var
@@ -78,10 +101,12 @@ def plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def plain_backward(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                    mean: torch.Tensor, var: torch.Tensor, instance: bool, slope: float = 1.0,
-                   eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   eps: float = 1e-5, cap: float = math.inf,
+                   strict: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward in PyTorch: dy (N, C, H, W) and the forward's x, mean
     and var -> dx in x.dtype, and the weight's and bias's gradients (C,) in
-    the statistics' dtype: the activation's slope from z recomputed from x,
+    the statistics' dtype: the activation's derivative (``_act_grad``) at z
+    recomputed from x,
     dx = weight * rstd * (dz - mean(dz) - xh * mean(dz * xh)) over each
     group, dweight and dbias summed over every row."""
     acc = mean.dtype
@@ -93,7 +118,7 @@ def plain_backward(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor, bias
     rs = torch.rsqrt(var.view(shape) + eps)
     xh = (x.to(acc) - mean.view(shape)) * rs
     g = dy.to(acc)
-    dz = torch.where(xh * w + b >= 0, g, g * slope)
+    dz = _act_grad(xh * w + b, g, slope, cap, strict)
     sdz = dz.sum(dim=dims, keepdim=True)
     sdzx = (dz * xh).sum(dim=dims, keepdim=True)
     dx = (w * rs) * (dz - sdz / cnt - xh * (sdzx / cnt))
@@ -166,7 +191,8 @@ def split_stats(stats: torch.Tensor, shape: tuple, instance: bool) -> tuple:
 def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             running_mean: Optional[torch.Tensor], running_var: Optional[torch.Tensor],
             instance: bool, slope: float, momentum: float, eps: float,
-            plan_groups: Optional[int] = None) -> tuple:
+            plan_groups: Optional[int] = None, cap: float = math.inf,
+            unbiased: bool = True) -> tuple:
     """The forward kernels on a channels-last CUDA map -> (y, stats)."""
     y = torch.empty_like(x, memory_format=CL)
     xp, yp = x.data_ptr(), y.data_ptr()
@@ -183,7 +209,8 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         sp + 4 * gc, weight.data_ptr(), bias.data_ptr(),
         None if running_mean is None else running_mean.data_ptr(),
         None if running_var is None else running_var.data_ptr(), p.code, p.groups, p.rows, p.c,
-        p.vec, p.gt, p.splits, p.chunk, eps, slope, momentum, p.unbias, stream)
+        p.vec, p.gt, p.splits, p.chunk, eps, slope, momentum, p.unbias if unbiased else 1.0,
+        cap, stream)
     if err:
         _build.check(lib, err, "norm_act")
     return y, stats
@@ -191,7 +218,7 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def _launch_backward(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, stats: torch.Tensor, instance: bool, slope: float,
-                     eps: float) -> tuple:
+                     eps: float, cap: float, strict: bool) -> tuple:
     """The backward kernels -> (dx, dweight, dbias)."""
     dx = torch.empty_like(x, memory_format=CL)
     xp, dyp, dxp = x.data_ptr(), dy.data_ptr(), dx.data_ptr()
@@ -213,22 +240,24 @@ def _launch_backward(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
         dyp, xp, dxp, at + 4 * (2 * c + 2 * gc),
         _ticket(x.device, p.tickets, stream).data_ptr(), sp, sp + 4 * gc,
         weight.data_ptr(), bias.data_ptr(), at + 8 * c, at + 4 * (2 * c + gc), at, at + 4 * c,
-        p.code, p.groups, p.rows, c, p.vec, p.gt, p.splits, p.chunk, eps, slope, stream)
+        p.code, p.groups, p.rows, c, p.vec, p.gt, p.splits, p.chunk, eps, slope, cap,
+        int(strict), stream)
     if err:
         _build.check(lib, err, "norm_act_backward")
     return dx, scratch[:c], scratch[c:2 * c]
 
 
-def _forward(x, weight, bias, running_mean, running_var, instance, slope, momentum, eps):
+def _forward(x, weight, bias, running_mean, running_var, instance, slope, momentum, eps,
+             cap=math.inf, unbiased=True):
     """-> (y, stats): the kernels on a card, the plain version on the CPU;
     ``stats`` holds the mean and the biased variance that the backward
     takes (``split_stats``)."""
     norm_act.launches += 1
     if x.is_cuda:
         return _launch(_channels_last(x), weight, bias, running_mean, running_var, instance,
-                       slope, momentum, eps)
+                       slope, momentum, eps, cap=cap, unbiased=unbiased)
     y, mean, var = plain(x, weight, bias, running_mean, running_var, instance, slope, momentum,
-                         eps)
+                         eps, cap, unbiased)
     return y, torch.cat([mean.reshape(-1), var.reshape(-1)])
 
 
@@ -238,52 +267,55 @@ class _NormAct(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, running_mean, running_var, instance, slope, momentum,
-                eps):
+                eps, cap, strict, unbiased):
         y, stats = _forward(x, weight, bias, running_mean, running_var, instance, slope,
-                            momentum, eps)
+                            momentum, eps, cap, unbiased)
         ctx.save_for_backward(x, weight, bias, stats)
-        ctx.instance, ctx.slope, ctx.eps = instance, slope, eps
+        ctx.args = instance, slope, eps, cap, strict
         return y
 
     @staticmethod
     def backward(ctx, dy):
         with span("norm.backward"):
             x, weight, bias, stats = ctx.saved_tensors
-            dx, dw, db = norm_act_backward(dy, x, weight, bias, stats, ctx.instance, ctx.slope,
-                                           ctx.eps)
-        return dx, dw, db, None, None, None, None, None, None
+            dx, dw, db = norm_act_backward(dy, x, weight, bias, stats, *ctx.args)
+        return (dx, dw, db) + (None,) * 9
 
 
 def norm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
              running_mean: Optional[torch.Tensor], running_var: Optional[torch.Tensor],
-             instance: bool, slope: float = 1.0, momentum: float = 0.1,
-             eps: float = 1e-5) -> torch.Tensor:
-    """x (N, C, H, W) in float32 or bfloat16 -> leaky(norm(x) * weight +
-    bias) with the activation's negative ``slope`` (1: none), in x.dtype,
-    channels-last; ``instance``: per-image statistics, else per batch.  The
-    running statistics (float32 (C,), or both None) are updated on x's
-    device, whether or not autograd records the call."""
+             instance: bool, slope: float = 1.0, momentum: float = 0.1, eps: float = 1e-5,
+             cap: float = math.inf, strict: bool = False,
+             unbiased: bool = True) -> torch.Tensor:
+    """x (N, C, H, W) in float32 or bfloat16 -> act(norm(x) * weight +
+    bias) in x.dtype, channels-last: act a LeakyReLU of negative ``slope``
+    (1: none) capped at ``cap`` (ReLU6: slope 0, cap 6), with F.relu's
+    derivative at 0 under ``strict`` (``_act_grad``); ``instance``:
+    per-image statistics, else per batch.  The running statistics (float32
+    (C,), or both None) are updated on x's device, whether or not autograd
+    records the call, ``running_var`` with the unbiased variance or, with
+    ``unbiased`` false, flax's biased one."""
     with span("norm.forward"):
         if _build.needs_grad(x, weight, bias):
             return _NormAct.apply(x, weight, bias, running_mean, running_var, instance, slope,
-                                  momentum, eps)
+                                  momentum, eps, cap, strict, unbiased)
         return _forward(x, weight, bias, running_mean, running_var, instance, slope, momentum,
-                        eps)[0]
+                        eps, cap, unbiased)[0]
 
 
 def norm_act_backward(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor, stats: torch.Tensor, instance: bool,
-                      slope: float = 1.0,
-                      eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                      slope: float = 1.0, eps: float = 1e-5, cap: float = math.inf,
+                      strict: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels on CUDA maps (channels-last), given the forward's
     ``stats`` (``_forward``'s, ``split_stats``) -> dx, dweight, dbias; a CPU
     map takes ``plain_backward``."""
     norm_act_backward.launches += 1
     if x.is_cuda:
         return _launch_backward(_channels_last(dy), _channels_last(x), weight, bias, stats,
-                                instance, slope, eps)
+                                instance, slope, eps, cap, strict)
     mean, var = split_stats(stats, x.shape, instance)
-    return plain_backward(dy, x, weight, bias, mean, var, instance, slope, eps)
+    return plain_backward(dy, x, weight, bias, mean, var, instance, slope, eps, cap, strict)
 
 
 norm_act.launches = 0
